@@ -1,0 +1,166 @@
+"""Runtime object behind generated solver packages (ADMM engine).
+
+Port of the JAX package's ``codegen/runtime.py`` ``CpgRuntime``: it plays
+the role of the reference's compiled pybind module + python wrapper
+(reference templates/cpg_solver.py.jinja2:38-213).  It holds the compiled
+family, caches theta between calls honouring ``updated_params``, resolves
+runtime settings through the registry, and warm-starts from the previous
+solution.  Gradients (``gradient=True``) and the explicit runtime arrive
+with later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+
+import numpy as np
+
+from ..canon.canonicalizer import Family, retrieve_duals, retrieve_primal
+from ..problem import SolverStats
+from ..runtime.solver import _status_str, make_compiled_solver
+from ..solvers.registry import ADMM_ALIASES, ADMM_SETTINGS
+
+_NO_GRADIENT = ('gradient=True needs the QP differentiation '
+                '(autodiff/qp_diff.py), which is not ported yet: ROADMAP.md '
+                'queue 1 item 6')
+
+
+def _pack_theta_cached(fam, prob, updated_params, cached):
+    """Theta caching honoring ``updated_params`` (parity: the reference's
+    generated update flags, templates/cpg_solver.py.jinja2:43-51 -- when a
+    param list is given, only those entries of the cached theta are
+    refreshed)."""
+    if cached is None or updated_params is None:
+        return fam.pack_theta(params=prob.parameters())
+    theta = cached
+    for pi in fam.param_info:
+        if pi.name in updated_params:
+            src = [p for p in prob.parameters() if p.id == pi.pid]
+            flat = (src[0].flatten_value() if src else
+                    fam.pack_theta(params=prob.parameters())
+                    [pi.offset:pi.offset + pi.flat_size])
+            theta[pi.offset:pi.offset + pi.flat_size] = flat
+    return theta
+
+
+class CpgRuntime:
+    def __init__(self, family: Family, solver_name='ADMM', prefix='',
+                 gradient=False, enable_settings=None, dtype=None,
+                 solver_opts=None, device=None):
+        if gradient:
+            raise NotImplementedError(_NO_GRADIENT)
+        self.family = family
+        self.prefix = prefix
+        self.gradient_enabled = gradient
+        self.enable_settings = enable_settings or []
+        self.solver = make_compiled_solver(family, solver_name, dtype=dtype,
+                                           device=device)
+        # parity: reference configure_settings warns when enable_settings
+        # names a setting the solver does not have (_interface.py:125-130)
+        for s in self.enable_settings:
+            if s not in ADMM_SETTINGS and s not in ADMM_ALIASES:
+                warnings.warn(f'Cannot enable setting {s} for solver '
+                              f'{solver_name}')
+        if solver_opts:
+            # generate-time solver_opts become the runtime setting defaults
+            base = self.solver.settings
+            upd = {k: v for k, v in solver_opts.items()
+                   if k in {f.name for f in dataclasses.fields(base)}}
+            if upd:
+                self.solver.settings = dataclasses.replace(base, **upd)
+        self.requested_solver = solver_name
+        self._theta = None
+        self._ctx = None
+        # warm-start state persisted across cpg_solve calls (parity:
+        # reference OSQP warm_starting default-ON, osqp.py:102-115)
+        self._warm = None
+
+    # -- settings -------------------------------------------------------
+    def _settings(self, kwargs):
+        """Registry-driven runtime-setting resolution (reference
+        _interface.py:125-130,197-199 semantics): translate reference/
+        CVXPY-style names, gate disabled settings behind
+        ``enable_settings``, and warn on unknown names."""
+        base = self.solver.settings
+        field_names = {f.name for f in dataclasses.fields(base)}
+        upd = {}
+        for k, v in kwargs.items():
+            k2 = ADMM_ALIASES.get(k, k)
+            reg_entry = ADMM_SETTINGS.get(k2)
+            if reg_entry is not None and not reg_entry.enabled \
+                    and k2 not in self.enable_settings \
+                    and k not in self.enable_settings:
+                warnings.warn(
+                    f'setting {k!r} is disabled for this solver; pass '
+                    f"enable_settings=['{k2}'] to generate_code to use it")
+                continue
+            if k2 in field_names:
+                upd[k2] = v
+            elif k2 == 'verbose':
+                continue  # handled by the caller (gated above)
+            else:
+                warnings.warn(f'ignoring unknown setting {k!r}')
+        return dataclasses.replace(base, **upd) if upd else base
+
+    def _pack(self, prob, updated_params):
+        self._theta = _pack_theta_cached(self.family, prob, updated_params,
+                                         self._theta)
+        return self._theta
+
+    # -- main solve (method='CPG') --------------------------------------
+    def cpg_solve(self, prob, updated_params=None, **kwargs):
+        verbose = bool(kwargs.pop('verbose', False))
+        if verbose and 'verbose' not in self.enable_settings:
+            warnings.warn(
+                "setting 'verbose' is disabled for this solver; pass "
+                "enable_settings=['verbose'] to generate_code to use it")
+            verbose = False
+        st = self._settings(kwargs)
+        theta = self._pack(prob, updated_params)
+        t0 = time.perf_counter()
+        warm = {}
+        if self._warm is not None and st.warm_starting:
+            warm = dict(x0=self._warm[0], y0=self._warm[1])
+        out = self.solver.solve_batch(theta[None, :], settings=st, **warm)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        solve_time = time.perf_counter() - t0
+        self._warm = (out['x'], out['y'])
+        fam = self.family
+        obj = float(out['obj'][0] + out['d'][0])
+        if fam.is_maximization:
+            obj = -obj
+        # parity: +-1e30 <-> inf decoding (reference utils.py:213-228)
+        if obj >= 1e29:
+            obj = np.inf
+        elif obj <= -1e29:
+            obj = -np.inf
+        status = _status_str(out)
+        primal = retrieve_primal(fam, out['x'][0])
+        duals = retrieve_duals(fam, out['y_canon'][0])
+        stats = SolverStats(
+            solver_name=self.requested_solver, solve_time=solve_time,
+            num_iters=int(out['iters'][0]),
+            extra=dict(pri_res=float(out['pri_res'][0]),
+                       dua_res=float(out['dua_res'][0])))
+        self._ctx = dict(out=out, theta=theta.copy())
+        if verbose:
+            print(f'CVXPYgen-torch {self.requested_solver}: '
+                  f'status {status}, iter {stats.num_iters}, '
+                  f'pri_res {stats.extra["pri_res"]:.2e}, '
+                  f'dua_res {stats.extra["dua_res"]:.2e}\n'
+                  f'optimal objective: {obj:.6f} '
+                  f'(solve time {1000 * solve_time:.2f} ms)')
+        return prob.unpack_results(status, obj, primal, duals, stats)
+
+    def cpg_gradient(self, prob):
+        raise NotImplementedError(_NO_GRADIENT)
+
+    # -- cvxpylayers-style forward/backward ------------------------------
+    def forward(self, prob, updated_params=None, **kwargs):
+        val = self.cpg_solve(prob, updated_params=updated_params, **kwargs)
+        info = dict(obj=val, ctx=self._ctx)
+        return [v.value for v in prob.variables()], info
+
+    def backward(self, prob, **kwargs):
+        return self.cpg_gradient(prob)

@@ -1,0 +1,139 @@
+"""The port's slice end to end on the CPU: generate_code + solve(method='CPG')
+and CompiledQPSolver.solve_batch (cvxpygen_tpu_torch) against the JAX
+package's same flows, float64."""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import problems as problems_ref
+import cvxpygen_tpu_torch
+from cvxpygen_tpu import cpg as cpg_ref
+from cvxpygen_tpu.canon.canonicalizer import canonicalize as canon_ref
+from cvxpygen_tpu.runtime.solver import CompiledQPSolver as SolverRef
+from cvxpygen_tpu.solvers.admm import ADMMSettings as SettingsRef
+from cvxpygen_tpu_torch import cpg
+from cvxpygen_tpu_torch.canon.canonicalizer import (canonicalize,
+                                                    family_from_arrays,
+                                                    family_to_arrays)
+from cvxpygen_tpu_torch.runtime.solver import (CompiledQPSolver,
+                                               make_compiled_solver)
+from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+
+
+def _problems_torch():
+    mod = types.ModuleType('problems_torch')
+    src = open(problems_ref.__file__).read()
+    exec(compile(src, problems_ref.__file__, 'exec'), mod.__dict__)
+    mod.ct = cvxpygen_tpu_torch
+    return mod
+
+
+def _mpc_pair(H=3):
+    pt = _problems_torch()
+    return (problems_ref.assign_MPC(problems_ref.MPC_problem(H=H), seed=0),
+            pt.assign_MPC(pt.MPC_problem(H=H), seed=0))
+
+
+def _x_init_batch(fam, prob, B, seed=0):
+    base = fam.pack_theta(params=prob.parameters())
+    xi = [pi for pi in fam.param_info if pi.name == 'x_init'][0]
+    theta = np.tile(base, (B, 1))
+    theta[:, xi.offset:xi.offset + xi.flat_size] = \
+        np.random.default_rng(seed).uniform(-2, 2, (B, xi.flat_size))
+    return theta
+
+
+def _assert_same_solution(ref, port, tol=1e-6):
+    assert port.status == ref.status
+    assert abs(port.value - ref.value) <= tol * max(1.0, abs(ref.value))
+    for va, vb in zip(ref.variables(), port.variables()):
+        np.testing.assert_allclose(vb.value, va.value, rtol=0, atol=tol)
+    for ca, cb in zip(ref.constraints, port.constraints):
+        np.testing.assert_allclose(np.asarray(cb.dual_value),
+                                   np.asarray(ca.dual_value), rtol=0, atol=tol)
+
+
+def test_generate_code_cpg_solve_matches_reference(tmp_path):
+    ref, port = _mpc_pair()
+    cpg_ref.generate_code(ref, code_dir=str(tmp_path / 'ref'), solver='ADMM')
+    cpg.generate_code(port, code_dir=str(tmp_path / 'port'), solver='ADMM',
+                      device='cpu')
+    assert (tmp_path / 'port' / 'family.pkl').exists()
+    src = (tmp_path / 'port' / 'cpg_solver.py').read_text()
+    assert 'cvxpygen_tpu_torch.codegen.runtime' in src
+    ref.solve(method='CPG', kkt_solver='inv')
+    port.solve(method='CPG', kkt_solver='inv')
+    assert port.status == 'optimal'
+    assert port.solver_stats.num_iters == ref.solver_stats.num_iters
+    _assert_same_solution(ref, port)
+    # parameter update + warm start from the previous solution
+    x_new = np.random.default_rng(1).uniform(-2, 2, 6)
+    for prob in (ref, port):
+        prob.param_dict['x_init'].value = x_new
+        prob.solve(method='CPG', updated_params=['x_init'], kkt_solver='inv')
+    assert port.solver_stats.num_iters == ref.solver_stats.num_iters
+    _assert_same_solution(ref, port)
+
+
+def test_solve_batch_matches_reference():
+    ref, _ = _mpc_pair()
+    fam_ref = canon_ref(ref)
+    theta = _x_init_batch(fam_ref, ref, 16)
+    kw = dict(eps_abs=1e-6, eps_rel=1e-6, max_iter=8000, kkt_solver='inv')
+    out_ref = SolverRef(fam_ref, settings=SettingsRef(**kw)).solve_batch(theta)
+    solver = CompiledQPSolver(family_from_arrays(family_to_arrays(fam_ref)),
+                              settings=ADMMSettings(**kw), device='cpu')
+    out = solver.solve_batch(theta)
+    assert out['x'].dtype == torch.float64
+    assert np.all(out['status'].numpy() == 1)
+    assert np.array_equal(np.asarray(out_ref['status']), out['status'].numpy())
+    assert np.array_equal(np.asarray(out_ref['iters']), out['iters'].numpy())
+    np.testing.assert_allclose(out['x'].numpy(), np.asarray(out_ref['x']),
+                               rtol=0, atol=1e-8)
+    np.testing.assert_allclose((out['obj'] + out['d']).numpy(),
+                               np.asarray(out_ref['obj'] + out_ref['d']),
+                               rtol=0, atol=1e-8)
+    # a tensor batch takes the same path
+    out_t = solver.solve_batch(torch.as_tensor(theta))
+    assert torch.equal(out_t['x'], out['x'])
+
+
+def test_non_shared_batch_raises():
+    _, port = _mpc_pair()
+    fam = canonicalize(port)
+    solver = CompiledQPSolver(fam, device='cpu')
+    theta = _x_init_batch(fam, port, 4)
+    theta[0, np.where(solver._pa_mask)[0][0]] += 0.1
+    with pytest.raises(NotImplementedError, match='queue 1 item 5'):
+        solver.solve_batch(theta)
+    with pytest.raises(NotImplementedError, match='queue 1 item 5'):
+        solver.solve_batch(theta[1:], shared_PA=False)
+
+
+def test_device_unset_without_cuda_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    _, port = _mpc_pair()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CompiledQPSolver(canonicalize(port))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cpg.generate_code(port, code_dir=str(tmp_path / 'p'), solver='ADMM')
+
+
+def test_unported_engines_raise(tmp_path):
+    pt = _problems_torch()
+    _, port = _mpc_pair()
+    fam = canonicalize(port)
+    for solver in ('SCS', 'IPM', 'BANDED'):
+        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+            make_compiled_solver(fam, solver, device='cpu')
+    for kw in (dict(solver='explicit'), dict(solver='ECOS'),
+               dict(solver='ADMM', gradient=True)):
+        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+            cpg.generate_code(port, code_dir=str(tmp_path / 'p'),
+                              device='cpu', **kw)
+    long_mpc = canonicalize(pt.assign_MPC(pt.MPC_problem(H=30)))
+    assert long_mpc.n >= 512
+    with pytest.raises(NotImplementedError, match='item 7'):
+        make_compiled_solver(long_mpc, 'ADMM', device='cpu')
