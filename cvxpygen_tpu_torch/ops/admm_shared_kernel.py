@@ -36,13 +36,10 @@ allocates.  float32 only on the card.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-import time
 
 import torch
+
+from .build import checked as _checked, load_library
 
 _INF = 1e30
 
@@ -54,13 +51,7 @@ _TILE, _TILE_K = 128, 16
 # per-block dynamic shared memory limit on Hopper (232,448 bytes)
 _SMEM_LIMIT = 232448
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..', 'csrc',
-                    'admm_shared.cu')
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-BUILD_DIR = os.path.join(_REPO_ROOT, 'build', 'cvxpygen_tpu_torch')
 _LIB = None
-_LIB_LOCK = threading.Lock()
 
 
 def shared_smem_bytes(chunk, n, m):
@@ -272,54 +263,21 @@ def admm_shared_solve_plain(Ps, qs, As, ls, us, rho_base, D, E, c_inv,
 # CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
+def _bind(lib):
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.admm_shared_solve_f32.restype = I
+    lib.admm_shared_solve_f32.argtypes = (
+        [P] * 8 + [F] + [P] * 6 + [P] * 7 + [P]
+        + [I] * 4 + [F] * 5 + [I] * 6 + [P])
+
+
 def build_kernel(verbose=False):
-    """Compile csrc/admm_shared.cu with nvcc for sm_90a into BUILD_DIR (once
-    per source content) and load it.  Returns the build's wall seconds
-    (0.0 when the library was already loaded).  Raises when nvcc is
-    missing or the build fails."""
+    """Compile csrc/admm_shared.cu with nvcc for sm_90a (ops/build.py) and
+    load it.  Returns the build's wall seconds (0.0 when the library was
+    already loaded).  Raises when nvcc is missing or the build fails."""
     global _LIB
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return 0.0
-        t0 = time.perf_counter()
-        with open(_SRC, 'rb') as f:
-            tag = hashlib.sha1(f.read()).hexdigest()[:12]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, f'libadmm_shared_{tag}.so')
-        if not os.path.exists(so):
-            nvcc = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
-                                'bin', 'nvcc')
-            if not os.path.exists(nvcc):
-                nvcc = 'nvcc'
-            tmp = f'{so}.{os.getpid()}.tmp'
-            cmd = [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a',
-                   '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-                   '-Xptxas', '-v', '-o', tmp, _SRC]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError('nvcc failed for admm_shared.cu:\n'
-                                   + res.stdout + res.stderr)
-            if verbose:
-                print(res.stderr.strip())
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.admm_shared_solve_f32.restype = I
-        lib.admm_shared_solve_f32.argtypes = (
-            [P] * 8 + [F] + [P] * 6 + [P] * 7 + [P]
-            + [I] * 4 + [F] * 5 + [I] * 6 + [P])
-        _LIB = lib
-        return time.perf_counter() - t0
-
-
-def _checked(t, name, shape, dev):
-    if t.device != dev or t.dtype != torch.float32:
-        raise TypeError(f'{name}: float32 on {dev} expected, got {t.dtype} '
-                        f'on {t.device}')
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f'{name}: shape {tuple(shape)} expected, got '
-                         f'{tuple(t.shape)}')
-    return t.contiguous()
+    _LIB, secs = load_library('admm_shared', _bind, verbose=verbose)
+    return secs
 
 
 def admm_shared_solve(Ps, qs, As, ls, us, rho_base, D, E, c_inv,

@@ -1,10 +1,10 @@
 """Compiled solvers: batched solve functions per problem family, in torch.
 
 Port of the QP branch of the JAX package's ``runtime/solver.py``: the
-online path canonicalize -> solve -> retrieve over a parameter batch.  This
-slice of the port carries the shared-KKT branch (every batch row shares the
-canonical P and A); the other engines raise ``NotImplementedError`` naming
-the ROADMAP.md queue-1 item that ports them.
+online path canonicalize -> solve -> retrieve over a parameter batch,
+through the shared-KKT branch (every batch row shares the canonical P and A)
+or the per-instance branch.  The other engines raise ``NotImplementedError``
+naming the ROADMAP.md queue-1 item that ports them.
 """
 from __future__ import annotations
 
@@ -12,14 +12,10 @@ import numpy as np
 import torch
 
 from ..canon.canonicalizer import Family
-from ..solvers.admm import ADMMSettings
+from ..solvers.admm import ADMMSettings, admm_solve
 from ..solvers.admm_shared import admm_solve_shared
-from .torch_family import (TorchFamily, canon_batch_shared, qp_bounds_batch,
-                           resolve_device)
-
-_PER_INSTANCE = ('the per-instance ADMM branch (batches whose rows do not '
-                 'share canonical P/A) is not ported yet: ROADMAP.md queue 1 '
-                 'item 5')
+from .torch_family import (TorchFamily, canon_batch, canon_batch_shared,
+                           qp_bounds_batch, resolve_device)
 
 
 def pa_theta_mask(family: Family):
@@ -84,19 +80,22 @@ class CompiledQPSolver:
 
     def solve_batch(self, theta, settings: ADMMSettings = None,
                     x0=None, y0=None, shared_PA='auto'):
-        """Batched solve through the shared-KKT path (one factorization for
-        the whole batch, every matvec a full-batch GEMM).  ``shared_PA``:
-        'auto' checks that the rows share the P/A-relevant theta entries;
-        True asserts it.  A batch that does not share P/A, or
-        ``shared_PA=False``, needs the per-instance branch and raises."""
-        if not self._use_shared(theta, shared_PA):
-            raise NotImplementedError(_PER_INSTANCE)
+        """Batched solve.  ``shared_PA`` selects the shared-KKT path (one
+        factorization for the whole batch, every matvec a full-batch GEMM):
+        'auto' takes it when the rows share the P/A-relevant theta entries,
+        True asserts that they do, False always takes the per-instance
+        path (solvers/admm.py::admm_solve: canonical P and A per row)."""
         st = settings or self.settings
         jf = self.jf
-        data = canon_batch_shared(jf, theta)
+        if self._use_shared(theta, shared_PA):
+            data = canon_batch_shared(jf, theta)
+            solve = admm_solve_shared
+        else:
+            data = canon_batch(jf, theta)
+            solve = admm_solve
         l, u = qp_bounds_batch(jf, data['b'])
-        res = admm_solve_shared(data['P'], data['q'], data['A'], l, u,
-                                jf.n_zero, st, x0=x0, y0=y0)
+        res = solve(data['P'], data['q'], data['A'], l, u, jf.n_zero, st,
+                    x0=x0, y0=y0)
         res['d'] = data['d']
         res['y_canon'] = -res['y']
         return res

@@ -48,7 +48,9 @@ def test_no_jax_or_reference_imports():
 def test_import_leaves_jax_unloaded():
     code = ('import sys, cvxpygen_tpu_torch, cvxpygen_tpu_torch.cpg, '
             'cvxpygen_tpu_torch.runtime.solver, '
-            'cvxpygen_tpu_torch.ops.admm_shared_kernel; '
+            'cvxpygen_tpu_torch.ops.admm_shared_kernel, '
+            'cvxpygen_tpu_torch.ops.admm_kernel, '
+            'cvxpygen_tpu_torch.ops.admm_full_kernel; '
             'print(sorted(m for m in sys.modules if m == "cvxpygen_tpu" '
             'or m.startswith("cvxpygen_tpu.") or m.split(".")[0] == "jax"))')
     env = dict(os.environ, PYTHONPATH=_ROOT)

@@ -100,16 +100,100 @@ def test_solve_batch_matches_reference():
     assert torch.equal(out_t['x'], out['x'])
 
 
+def _assert_same_batch(out_ref, out, atol=1e-8):
+    assert np.array_equal(np.asarray(out_ref['status']), out['status'].numpy())
+    assert np.array_equal(np.asarray(out_ref['iters']), out['iters'].numpy())
+    np.testing.assert_allclose(out['x'].numpy(), np.asarray(out_ref['x']),
+                               rtol=0, atol=atol)
+    np.testing.assert_allclose((out['obj'] + out['d']).numpy(),
+                               np.asarray(out_ref['obj'] + out_ref['d']),
+                               rtol=0, atol=atol)
+    np.testing.assert_allclose(out['y_canon'].numpy(),
+                               np.asarray(out_ref['y_canon']), rtol=0,
+                               atol=atol)
+
+
 def test_non_shared_batch_raises():
+    """A non-shared batch that kernel K2 cannot take (B=6: no block of the
+    reference's rule divides it) raises under use_pallas='full'; unlike the
+    reference (solvers/admm.py:341) the port does not fall back to the
+    loop."""
+    _, port = _mpc_pair()
+    fam = canonicalize(port)
+    solver = CompiledQPSolver(fam, device='cpu', settings=ADMMSettings(
+        use_pallas='full'))
+    theta = _x_init_batch(fam, port, 6)
+    with pytest.raises(ValueError, match='no block'):
+        solver.solve_batch(theta, shared_PA=False)
+    assert solver.solve_batch(theta[:4], shared_PA=False)['status'].tolist() \
+        == [1] * 4
+
+
+def test_non_shared_batch_solves():
+    """A batch whose rows differ in a P/A-relevant parameter takes the
+    per-instance branch and solves."""
     _, port = _mpc_pair()
     fam = canonicalize(port)
     solver = CompiledQPSolver(fam, device='cpu')
     theta = _x_init_batch(fam, port, 4)
     theta[0, np.where(solver._pa_mask)[0][0]] += 0.1
-    with pytest.raises(NotImplementedError, match='queue 1 item 5'):
-        solver.solve_batch(theta)
-    with pytest.raises(NotImplementedError, match='queue 1 item 5'):
-        solver.solve_batch(theta[1:], shared_PA=False)
+    assert not solver._use_shared(theta, 'auto')
+    out = solver.solve_batch(theta)
+    assert out['status'].tolist() == [1] * 4
+    # the other rows' solutions do not depend on row 0
+    rest = solver.solve_batch(theta[1:], shared_PA=False)
+    np.testing.assert_allclose(rest['x'].numpy(), out['x'][1:].numpy(),
+                               rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize('engine', ['never', 'full_interpret'])
+def test_per_instance_solve_batch_matches_reference(engine):
+    """shared_PA=False on MPC H=3: the per-instance branch of both packages
+    on the same 16 distinct x_init."""
+    ref, _ = _mpc_pair()
+    fam_ref = canon_ref(ref)
+    theta = _x_init_batch(fam_ref, ref, 16)
+    kw = dict(eps_abs=1e-6, eps_rel=1e-6, max_iter=8000, use_pallas=engine,
+              kkt_solver='inv' if engine == 'never' else 'ns', ns_iters=40,
+              adaptive_rho=True, adaptive_rho_tolerance=1.5)
+    out_ref = SolverRef(fam_ref, settings=SettingsRef(**kw)).solve_batch(
+        theta, shared_PA=False)
+    solver = CompiledQPSolver(family_from_arrays(family_to_arrays(fam_ref)),
+                              settings=ADMMSettings(**kw), device='cpu')
+    out = solver.solve_batch(theta, shared_PA=False)
+    assert np.all(out['status'].numpy() == 1)
+    _assert_same_batch(out_ref, out)
+
+
+def test_portfolio_varying_factors_matches_reference():
+    """Portfolio with per-instance factor loadings F (bench.py:473-495 at a
+    small size): canonical P/A vary, so both packages take the per-instance
+    path."""
+    n_assets, m_factors, B = 6, 2, 8
+    ref = problems_ref.assign_portfolio(
+        problems_ref.portfolio_problem(n=n_assets, m=m_factors), seed=0,
+        n=n_assets, m=m_factors)
+    fam_ref = canon_ref(ref)
+    rng = np.random.default_rng(7)
+    base = fam_ref.pack_theta(params=ref.parameters())
+    Fi = [pi for pi in fam_ref.param_info if pi.name == 'F'][0]
+    ai = [pi for pi in fam_ref.param_info if pi.name == 'a'][0]
+    theta = np.tile(base, (B, 1))
+    theta[:, Fi.offset:Fi.offset + Fi.flat_size] = np.round(
+        rng.standard_normal((B, Fi.flat_size)))
+    theta[:, ai.offset:ai.offset + ai.flat_size] = rng.standard_normal(
+        (B, ai.flat_size))
+    kw = dict(eps_abs=1e-6, eps_rel=1e-6, max_iter=8000, kkt_solver='inv',
+              use_pallas='never')
+    solver_ref = SolverRef(fam_ref, settings=SettingsRef(**kw))
+    assert not solver_ref._use_shared(theta, 'auto')
+    out_ref = solver_ref.solve_batch(theta)
+    fam = family_from_arrays(family_to_arrays(fam_ref))
+    solver = CompiledQPSolver(fam, settings=ADMMSettings(**kw), device='cpu')
+    assert not solver._use_shared(theta, 'auto')
+    out = solver.solve_batch(theta)
+    assert np.all(out['status'].numpy() == 1)
+    _assert_same_batch(out_ref, out)
 
 
 def test_device_unset_without_cuda_raises(monkeypatch, tmp_path):
