@@ -6,8 +6,9 @@ Run from the root of the repository:  python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build kernels K1 (csrc/admm_shared.cu), K2 (csrc/admm_full.cu) and K3
-   (csrc/admm_iterate.cu), one nvcc for sm_90a each, all started together,
+1. build kernels K1 (csrc/admm_shared.cu), K2 (csrc/admm_full.cu), K3
+   (csrc/admm_iterate.cu), K4 (csrc/cr_solve.cu) and K5
+   (csrc/banded_chunk.cu), one nvcc for sm_90a each, all started together,
    and identify the card;
 2. K1 against its plain torch version on the card, on the scaled MPC data
    (n=222, m=252) that the shared main path hands it, at B=256 and at the
@@ -45,8 +46,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    (at most 1% unsolved, since roundoff decides a few borderline instances
    there) and with a second refinement sweep (every instance solved), both
    within the oracle parity bar; each launches its kernel;
-7. a JSON line with each kernel's launches, error, times and bound;
-8. the card's name and power limit (nvidia-smi), then the result line.
+7. K4 (csrc/cr_solve.cu) against its plain version on the charging T=1440
+   factor of the shared path's first factorization (nb=541, s=8) at B=256,
+   on right-hand sides b = M x of random x ~ N(0, 1) (every entry of x of
+   order 1, so the bar sees each) and on a mid-solve call (x within
+   K4_TOL * max(1, |x|_inf)); K4's time, the plain version's, the bound and
+   torch.cholesky_solve of the dense Cholesky factor of the same M;
+8. K5 (csrc/banded_chunk.cu) against its plain version on scaled MPC H=30
+   data (nb=41, s=16, r_max=24) at B=256, from the zero start and from a
+   mid-solve state with every fifth instance done (the bars of K5_TOL and
+   K5_FLAG_BAND), and one call's time at B=2048 with its bound;
+9. the banded main path at full width: charging T=1440 (bench.py:544-580)
+   through generate_code(solver='BANDED') -> solve(method='CPG'), within
+   1e-2 of the port's dense float64 ADMM at eps 1e-6 on the card, and
+   CompiledBandedQPSolver.solve_batch on 256 instances (K4): at the bench's
+   eps 1e-3 within 1e-2 of the dense float64 ADMM at the same eps (the
+   stopping rule alone leaves up to about 1% to the optimum there, which
+   the script prints), at eps 1e-4 within 1e-2 of eps 1e-6; MPC H=30
+   through make_compiled_solver(fam, 'ADMM') on 2048 x_init (K5), parity
+   against the float64 oracle on 16; the per-instance engine on charging
+   with gamma per instance at B=64, parity against the dense per-instance
+   float64 ADMM on 4; every instance solved; each kernel's launches are
+   those of one solve_batch at the bench's settings (the count set to 0
+   just before it); where the time goes (each kernel's CUDA-event time
+   inside one more solve);
+10. a JSON line with each kernel's launches, error, times and bound;
+11. the card's name and power limit (nvidia-smi), then the result line.
 
 ``python3 chip_smoke.py --block-sweep`` instead builds the kernels and runs
 K2 on the portfolio and MPC general batches at several blocks, printing
@@ -89,6 +114,50 @@ PORTFOLIO_SETTINGS_REFINE2 = dict(PORTFOLIO_SETTINGS, kkt_refine=2)
 # the share of portfolio instances that may stay unsolved at the bench's
 # one refinement sweep (the 1% of phase 2's bar)
 PORTFOLIO_UNSOLVED_SHARE = 0.01
+# bench.py:544-580, the charging row (reference examples/charging.ipynb) on
+# the banded engine
+CHARGING_T = 1440
+CHARGING_SETTINGS = dict(eps_abs=1e-3, eps_rel=1e-3, max_iter=10000,
+                         check_interval=50, adaptive_rho=True)
+# bench.py:142-152, the fields of the shared MPC row that the banded engine
+# reads (the Newton-Schulz fields have no counterpart there)
+MPC30_SETTINGS = dict(eps_abs=1e-3, eps_rel=1e-3, max_iter=2000,
+                      check_interval=15, scaling=3, adaptive_rho=True)
+# float64 references on the card for the charging parity bars: the dense
+# ADMM loops in float64 at eps 1e-6 (the NumPy oracle is impractical at
+# n + m = 14405)
+DENSE_REF_SETTINGS = dict(eps_abs=1e-6, eps_rel=1e-6, max_iter=20000,
+                          check_interval=25, adaptive_rho=True,
+                          kkt_solver='inv', use_pallas='never')
+# at the bench's eps 1e-3 the ADMM stopping rule alone leaves charging
+# objectives up to about 1% from the optimum (the dense float64 ADMM at
+# eps 1e-3 shows the same gap, PERF.md): the bench-setting batch is held to
+# that float64 run, and the 1e-2 bar against eps 1e-6 is held at
+# CHARGING_TIGHT_EPS
+CHARGING_TIGHT_EPS = 1e-4
+B_CHARGING = 256
+B_CHARGING_PER = 64
+N_REF_CHARGING = 8
+N_REF_CHARGING_PER = 4
+N_ORACLE_MPC30 = 16
+# K4 against its plain version: per instance, max |dx| <= K4_TOL * max(1,
+# |x|_inf).  Both apply the same float32 factor; their dot products sum in
+# other orders, and each CR level carries that roundoff into the next, so
+# the bar is the float32 roundoff (~1e-7) times the growth through the
+# levels; the script prints the plain version's own distance from a
+# float64 application of the same factor beside it.  A random b would give
+# an x whose few huge entries (M's small eigenvalues) set the bar and hide
+# the others, so the random case solves for a known x ~ N(0, 1)
+K4_TOL = 1e-4
+# K5 against its plain version: x, z, y within K5_TOL * max(1, |v|_inf)
+# per instance; rp and rp_den within K5_TOL * max(1, rp_den), rd and rd_den
+# within K5_TOL * max(1, rd_den) (a residual is the norm of a difference of
+# terms of the size of its denominator, and inherits their roundoff); equal
+# flags;
+# where the ok flag differs, the residual must lie within K5_FLAG_BAND
+# (relative to max(1, threshold)) of its threshold
+K5_TOL = 1e-4
+K5_FLAG_BAND = 1e-5
 B_MAIN = 2048
 B_CMP = 256
 B_PORTFOLIO = 512
@@ -195,15 +264,19 @@ def k1_bound(n, m, B, iters, refactors, st):
 
 
 def phase_build():
-    """Build K1, K2 and K3 at once: one nvcc per source, in parallel."""
+    """Build K1-K5 at once: one nvcc per source, in parallel."""
     from cvxpygen_tpu_torch.ops import admm_full_kernel as k2
     from cvxpygen_tpu_torch.ops import admm_kernel as k3
     from cvxpygen_tpu_torch.ops import admm_shared_kernel as k1
+    from cvxpygen_tpu_torch.ops import banded_shared_kernel as k45
     t0 = time.perf_counter()
-    srcs = (('admm_shared.cu', k1), ('admm_full.cu', k2),
-            ('admm_iterate.cu', k3))
+    srcs = (('admm_shared.cu', k1.build_kernel),
+            ('admm_full.cu', k2.build_kernel),
+            ('admm_iterate.cu', k3.build_kernel),
+            ('cr_solve.cu', k45.build_cr_kernel),
+            ('banded_chunk.cu', k45.build_chunk_kernel))
     with ThreadPoolExecutor(len(srcs)) as ex:
-        futs = [(src, ex.submit(mod.build_kernel, True)) for src, mod in srcs]
+        futs = [(src, ex.submit(build, True)) for src, build in srcs]
         for src, fut in futs:
             print(f'# phase 1: built csrc/{src} in {fut.result():.2f} s')
     print(f'# phase 1: all builds {time.perf_counter() - t0:.2f} s')
@@ -897,6 +970,536 @@ def block_sweep(card):
                   f'{float(out[4].float().mean()):.2f}')
 
 
+# ---------------------------------------------------------------------------
+# the banded path: kernels K4 and K5
+# ---------------------------------------------------------------------------
+
+def charging_problem(ct, T=CHARGING_T):
+    """The charging family of bench.py:544-566 (reference
+    examples/charging.ipynb) with the bench's parameter values."""
+    u = ct.Variable(T, name='u')
+    qv = ct.Variable(T + 1, name='q')
+    p = ct.Parameter(T, nonneg=True, name='p')
+    s = ct.Parameter(T, nonneg=True, name='s')
+    D = ct.Parameter(nonneg=True, name='D')
+    C = ct.Parameter(nonneg=True, name='C')
+    Q = ct.Parameter(nonneg=True, name='Q')
+    gamma = ct.Parameter(nonneg=True, name='gamma')
+    objective = ct.Minimize(p @ u + s @ ct.abs(u)
+                            + gamma * ct.sum_squares(u))
+    constraints = [qv[1:] == qv[:-1] + u, -D <= u, u <= C,
+                   ct.Constant(0) <= qv, qv <= Q,
+                   qv[0] == 0, qv[T] == Q]
+    prob = ct.Problem(objective, constraints)
+    p.value = np.concatenate((
+        3 * np.ones(int(3 * T / 24)), 5 * np.ones(int(7 * T / 24)),
+        1 * np.ones(T - int(3 * T / 24) - int(7 * T / 24))))
+    s.value = 0.1 * p.value
+    Q.value = 1.0
+    C.value = 3 * Q.value / T
+    D.value = 2 * C.value
+    gamma.value = 100.0
+    return prob
+
+
+def charging_batch(fam, prob, B, vary_gamma=False):
+    """B instances: the prices p times U(0.8, 1.2) from default_rng(2)
+    (bench.py:571-576); with ``vary_gamma`` also gamma times U(0.5, 1.5)
+    per instance from default_rng(3), so that P differs per instance."""
+    base = fam.pack_theta(params=prob.parameters())
+    pi = [x for x in fam.param_info if x.name == 'p'][0]
+    theta = np.tile(base, (B, 1))
+    theta[:, pi.offset:pi.offset + pi.flat_size] *= np.random.default_rng(
+        2).uniform(0.8, 1.2, (B, pi.flat_size))
+    if vary_gamma:
+        gi = [x for x in fam.param_info if x.name == 'gamma'][0]
+        theta[:, gi.offset] *= np.random.default_rng(3).uniform(0.5, 1.5, B)
+    return theta
+
+
+def canon_vectors(fam, theta):
+    """q, d and b of each row of theta in float64 (Family.canon_numpy
+    without the dense P and A)."""
+    tt = np.concatenate([theta, np.ones((theta.shape[0], 1))], axis=1)
+    q = (fam.q_map @ tt.T).T
+    d = np.asarray(fam.d_map @ tt.T).reshape(-1)
+    if fam.d_quad is not None:
+        d = d + np.einsum('bp,bp->b', tt, (fam.d_quad @ tt.T).T)
+    b = (fam.b_map @ tt.T).T
+    return np.asarray(q), d, np.asarray(b)
+
+
+def dense_refs(fam, theta, dev, shared, **over):
+    """Objectives (with d) of the port's dense ADMM in float64 at eps 1e-6
+    (or the settings ``over`` changes) on the rows of theta:
+    admm_solve_shared on the shared P and A of row 0, or admm_solve per
+    instance.  Every row must solve."""
+    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings, admm_solve
+    from cvxpygen_tpu_torch.solvers.admm_shared import admm_solve_shared
+    q, d, b = canon_vectors(fam, theta)
+    bounds = [fam.qp_bounds(bi) for bi in b]
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=dev)
+
+    l, u = t([lu[0] for lu in bounds]), t([lu[1] for lu in bounds])
+    st = ADMMSettings(**dict(DENSE_REF_SETTINGS, **over))
+    if shared:
+        P, _, _, A, _ = fam.canon_numpy(theta[0])
+        res = admm_solve_shared(t(P), t(q), t(A), l, u, fam.n_zero, st)
+    else:
+        PA = [fam.canon_numpy(th) for th in theta]
+        res = admm_solve(t([c[0] for c in PA]), t(q), t([c[3] for c in PA]),
+                         l, u, fam.n_zero, st)
+    status = res['status'].cpu().numpy()
+    check(bool(np.all(status == 1)), f'float64 reference: status {status}')
+    return list(res['obj'].cpu().numpy() + d), res['iters'].cpu().numpy()
+
+
+def k4_bound(nb_tot, nb, s, B):
+    """Least time of K4's work: the larger of the FP32 operations (every
+    packed block applied once per right-hand side) over the FP32 peak and
+    the bytes (b in, x out, the factor once) over the HBM rate."""
+    ops = 2.0 * B * nb_tot * s * s
+    nbytes = 4.0 * (2 * nb * s * B + nb_tot * s * s)
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes', ops, nbytes)
+
+
+def k5_bound(nb_tot, s, n, m, nnz_a, nnz_p, B, n_active, n_iters):
+    """Least time of K5's work on these inputs: the FP32 operations that
+    the function needs over the FP32 peak, against the bytes (the shared
+    inputs and each instance's state once in, once out) over the HBM rate.
+    Operations, counted on the real data and not on the kernel's padded
+    layouts (r_max rows per block, dense P blocks): per active instance
+    and iteration the A' and A products (nnz(A) multiply-adds each) and
+    the CR solve (every packed factor block applied once); per instance
+    and call the residual and certificate products, four with A and two
+    with P (nnz(P) each).  The element-wise updates are left out."""
+    per_iter = 2 * nnz_a + nb_tot * s * s
+    per_check = 4 * nnz_a + 2 * nnz_p
+    ops = 2.0 * (n_active * n_iters * per_iter + B * per_check)
+    shared_words = nb_tot * s * s + nnz_a + nnz_p + n + 3 * m
+    inst_words = (2 * n + 4 * m + 1          # q, x, l, u, z, y, done
+                  + n + 2 * m + 5)           # x, z, y, 4 residuals, flags
+    nbytes = 4.0 * (shared_words + B * inst_words)
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes', ops, nbytes)
+
+
+def banded_args(solver, theta, settings):
+    """The shared banded engine's kernel arguments at the start state on
+    this batch (solvers/admm_banded_shared.banded_kernel_args)."""
+    from cvxpygen_tpu_torch.runtime.torch_family import (canon_batch_sparse,
+                                                         qp_bounds_batch)
+    from cvxpygen_tpu_torch.solvers.admm_banded_shared import \
+        banded_kernel_args
+    data = canon_batch_sparse(solver.jf, theta)
+    l, u = qp_bounds_batch(solver.jf, data['b'])
+    return banded_kernel_args(solver.struct, solver.grouped,
+                              data['pvals'][0], data['q'], data['avals'][0],
+                              l, u, solver.jf.n_zero, settings,
+                              index=solver.index)
+
+
+def mid_solve_k4_call(solver, theta, settings, call):
+    """(factor, meta, rhs) of K4's call number ``call`` in a solve of this
+    batch: a right-hand side from the middle of a solve, with the factor
+    of that moment."""
+    import dataclasses
+    from cvxpygen_tpu_torch.solvers import admm_banded_shared as engine
+    real = engine.cr_solve
+    seen = []
+
+    def spy(packed, meta, rhs):
+        if len(seen) == call:
+            seen.append((packed.clone(), meta, rhs.clone()))
+        else:
+            seen.append(None)
+        return real(packed, meta, rhs)
+
+    engine.cr_solve = spy
+    try:
+        stop = (call // settings.check_interval + 1) * settings.check_interval
+        solver.solve_batch(theta, settings=dataclasses.replace(
+            settings, max_iter=stop))
+    finally:
+        engine.cr_solve = real
+    check(len(seen) > call, f'the solve made {len(seen)} K4 calls')
+    return seen[call]
+
+
+def compare_k4(solver, theta, settings, card):
+    """K4 against its plain version on the charging factor of the shared
+    path's first factorization (random right-hand sides) and on a
+    mid-solve call; times of K4, the plain version, the bound and
+    torch.cholesky_solve of the dense Cholesky factor of the same M."""
+    from cvxpygen_tpu_torch.ops import banded_shared_kernel as k45
+    from cvxpygen_tpu_torch.ops.block_tridiag import bt_matvec
+    from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
+    dev = solver.device
+    st = solver.struct
+    nb, s, B = st.nb, st.s, theta.shape[0]
+    args = banded_args(solver, theta, settings)
+    fac, meta, D_M, L_M = args[0], args[1], args[6], args[7]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x_true = torch.randn((B, nb, s), generator=gen, device=dev,
+                         dtype=torch.float64)
+    b_true = bt_matvec(D_M.double()[None], L_M.double()[None], x_true)
+    cases = [('b = M x of random x', fac, meta,
+              b_true.permute(1, 2, 0).float().contiguous())]
+    cases.append(('mid-solve rhs (call 120)',)
+                 + mid_solve_k4_call(solver, theta, settings, 120))
+    max_abs = 0.0
+    for name, f, m, b in cases:
+        x = k45.cr_solve(f, m, b)
+        torch.cuda.synchronize()
+        x_ref = k45.cr_solve_plain(f, m, b)
+        x64 = k45.cr_solve_plain(f.double(), m, b.double())
+        check(bool(torch.isfinite(x).all()), f'K4 {name}: non-finite x')
+        scale = torch.clamp(x_ref.abs().amax(dim=(0, 1)), min=1.0)
+        err = (x - x_ref).abs().amax(dim=(0, 1))
+        viol = float((err / scale).max())
+        own = float(((x_ref.double() - x64).abs().amax(dim=(0, 1))
+                     / scale.double()).max())
+        max_abs = max(max_abs, float(err.max()))
+        print(f'# phase 7: K4 {name}, B={B}: max |dx| {float(err.max()):.3e}, '
+              f'max |dx|/max(1,|x|_inf) {viol:.3e} (bar {K4_TOL}); the plain '
+              f'version against float64: {own:.3e}')
+        check(viol <= K4_TOL, f'K4 {name}: {viol:.3e} > {K4_TOL}')
+    b = cases[0][3]
+    k45.cr_solve(fac, meta, b)                              # warm
+    ms, _ = cuda_ms(lambda: k45.cr_solve(fac, meta, b), 50)
+    k45.cr_solve_plain(fac, meta, b)                        # warm
+    plain_ms, _ = cuda_ms(lambda: k45.cr_solve_plain(fac, meta, b), 5)
+    # the library yardstick: the dense M (n_pad x n_pad) and its Cholesky
+    # factor, built outside the timed window
+    n_pad = nb * s
+    with full_f32_matmul():
+        Md = torch.zeros((nb, s, nb, s), dtype=torch.float64, device=dev)
+        idx = torch.arange(nb, device=dev)
+        Md[idx, :, idx, :] = D_M.double()
+        Md[idx[1:], :, idx[:-1], :] = L_M.double()
+        Md[idx[:-1], :, idx[1:], :] = L_M.double().transpose(1, 2)
+        # factored in float64 (float32 Cholesky of this M may meet a
+        # non-positive pivot), then applied in float32 like K4
+        Lc = torch.linalg.cholesky(Md.reshape(n_pad, n_pad)).float()
+        b2 = b.reshape(n_pad, B)
+        torch.cholesky_solve(b2, Lc)                        # warm
+        lib_ms, x_lib = cuda_ms(lambda: torch.cholesky_solve(b2, Lc), 10)
+    x_k4 = k45.cr_solve(fac, meta, b).reshape(n_pad, B)
+    lib_diff = float(((x_lib - x_k4).abs().amax(dim=0)
+                      / torch.clamp(x_k4.abs().amax(dim=0), min=1.0)).max())
+    bound_ms, bound_by, ops, nbytes = k4_bound(meta['total'], nb, s, B)
+    print(f'# phase 7: K4 at nb={nb}, s={s}, B={B} ({meta["total"]} packed '
+          f'blocks): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+          f'{bound_ms:.5f} ms ({bound_by}; {ops / 1e6:.1f} MFLOP, '
+          f'{nbytes / 1e6:.2f} MB), torch.cholesky_solve {lib_ms:.4f} ms '
+          f'(max |dx|/max(1,|x|) to K4 {lib_diff:.2e}) [{card}]')
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def k5_check(out, ref, kw, label):
+    """Hold K5's outputs against the plain version's (the bars of
+    K5_TOL and K5_FLAG_BAND).  Returns the largest absolute difference of
+    x, z, y."""
+    max_abs = 0.0
+    for name, o, r in zip('xzy', out[:3], ref[:3]):
+        check(bool(torch.isfinite(o).all()), f'K5 {label}: non-finite {name}')
+        err = (o - r).abs().amax(dim=(0, 1))
+        scale = torch.clamp(r.abs().amax(dim=(0, 1)), min=1.0)
+        viol = float((err / scale).max())
+        max_abs = max(max_abs, float(err.max()))
+        print(f'# phase 8: K5 {label}, {name}: max |d| {float(err.max()):.3e}'
+              f', max |d|/max(1,|{name}|_inf) {viol:.3e}')
+        check(viol <= K5_TOL, f'K5 {label} {name}: {viol:.3e} > {K5_TOL}')
+    # rp and rd are norms of differences of terms of the size of rp_den and
+    # rd_den, so their roundoff is relative to those
+    scales = (ref[5], ref[6], ref[5], ref[6])
+    viols = []
+    for name, o, r, sc in zip(('rp', 'rd', 'rp_den', 'rd_den'), out[3:7],
+                              ref[3:7], scales):
+        viol = float(((o - r).abs() / torch.clamp(sc.abs(), min=1.0)).max())
+        viols.append(f'{name} {viol:.2e}')
+        check(viol <= K5_TOL, f'K5 {label} {name}: {viol:.3e} > {K5_TOL}')
+    flags, flags_ref = out[7], ref[7]
+    diff = (flags != flags_ref).nonzero().flatten().tolist()
+    for i in diff:
+        check(int((flags[i] ^ flags_ref[i]) & 6) == 0,
+              f'K5 {label}: infeasibility flags differ at instance {i}')
+        rp, rd, rpd, rdd = (float(v[i]) for v in ref[3:7])
+        thr_p = kw['eps_abs'] + kw['eps_rel'] * rpd
+        thr_d = kw['eps_abs'] + kw['eps_rel'] * rdd
+        gap = min(abs(rp - thr_p) / max(1.0, thr_p),
+                  abs(rd - thr_d) / max(1.0, thr_d))
+        print(f'# phase 8: K5 {label}: ok flag differs at instance {i}: rp '
+              f'{rp:.6e} (threshold {thr_p:.6e}), rd {rd:.6e} (threshold '
+              f'{thr_d:.6e}), closest gap {gap:.2e}')
+        check(gap <= K5_FLAG_BAND, f'K5 {label}: flag differs at {i} '
+              f'{gap:.2e} from its threshold')
+    print(f'# phase 8: K5 {label}: residuals |d| / max(1, rp_den or rd_den)'
+          f' {", ".join(viols)}; flags differ on {len(diff)} instances')
+    return max_abs
+
+
+def compare_k5(solver, theta_cmp, theta_main, settings, card):
+    """K5 against its plain version on the scaled MPC H=30 data at B=256,
+    from the zero start and from a mid-solve state with every fifth
+    instance done, then one call's time at B=2048 (held to the same bar)."""
+    from cvxpygen_tpu_torch.ops import banded_shared_kernel as k45
+    kw = dict(sigma=settings.sigma, alpha=settings.alpha,
+              eps_abs=settings.eps_abs, eps_rel=settings.eps_rel,
+              check_interval=settings.check_interval, kkt_refine=0)
+    dev = solver.device
+    st, ga = solver.struct, solver.grouped
+
+    def call(fn, args, done):
+        a = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+        return fn(*a, done, **kw)
+
+    args = banded_args(solver, theta_cmp, settings)
+    B = theta_cmp.shape[0]
+    done = torch.zeros((1, 1, B), dtype=torch.int32, device=dev)
+    max_abs = 0.0
+    out = call(k45.banded_shared_chunk, args, done)
+    torch.cuda.synchronize()
+    max_abs = max(max_abs, k5_check(out, call(
+        k45.banded_shared_chunk_plain, args, done), kw, f'B={B} zero start'))
+    # mid-solve: three more kernel calls from there, every fifth instance
+    # marked done
+    state = list(args[:-3]) + list(out[:3])
+    for _ in range(3):
+        state[-3:] = list(call(k45.banded_shared_chunk, state, done)[:3])
+    done_mid = done.clone()
+    done_mid[..., ::5] = 1
+    out = call(k45.banded_shared_chunk, state, done_mid)
+    torch.cuda.synchronize()
+    ref = call(k45.banded_shared_chunk_plain, state, done_mid)
+    max_abs = max(max_abs, k5_check(out, ref, kw, f'B={B} mid-solve, '
+                                    'every fifth instance done'))
+    for o, a in zip(out[:3], state[-3:]):
+        check(torch.equal(o[..., ::5], a[..., ::5]),
+              'K5: a done instance changed')
+
+    args = banded_args(solver, theta_main, settings)
+    Bm = theta_main.shape[0]
+    done = torch.zeros((1, 1, Bm), dtype=torch.int32, device=dev)
+    out = call(k45.banded_shared_chunk, args, done)        # warm
+    max_abs = max(max_abs, k5_check(out, call(
+        k45.banded_shared_chunk_plain, args, done), kw, f'B={Bm} zero start'))
+    a = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+    ms, _ = cuda_ms(lambda: k45.banded_shared_chunk(*a, done, **kw), 5)
+    a = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+    k45.banded_shared_chunk_plain(*a, done, **kw)           # warm
+    plain_ms, _ = cuda_ms(
+        lambda: k45.banded_shared_chunk_plain(*a, done, **kw), 1)
+    bound_ms, bound_by, ops, nbytes = k5_bound(
+        args[1]['total'], st.s, st.n, st.m, len(st.a_row), len(st.p_row), Bm,
+        Bm, settings.check_interval)
+    print(f'# phase 8: K5 at nb={st.nb}, s={st.s}, r_max={ga.r_max}, B={Bm}, '
+          f'{settings.check_interval} iterations: kernel {ms:.4f} ms, plain '
+          f'{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; '
+          f'{ops / 1e9:.2f} GFLOP FP32, {nbytes / 1e6:.1f} MB) [{card}]')
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def time_solve(solver, theta, reps, counter=None, **kw):
+    """One solve_batch with the kernel's launch count (``counter``) set to
+    0 just before it and read just after, then ``reps`` timed (host clock
+    around calls ending in a synchronize).  Returns (out, seconds per call,
+    the first call's launches, the first call's iterations)."""
+    if counter is not None:
+        counter.launches = 0
+    out = solver.solve_batch(theta, **kw)
+    launches = counter.launches if counter is not None else 0
+    first_iters = out['iters'].float()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = solver.solve_batch(theta, **kw)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / reps, launches, first_iters
+
+
+def kernel_share(solver, theta, name, card):
+    """One more solve_batch with CUDA events around each launch of the
+    shared banded engine's kernel ``name`` (``cr_solve`` or
+    ``banded_shared_chunk`` in solvers/admm_banded_shared.py): prints the
+    kernel's summed device time against the solve's wall time.  Its
+    launches are not the main path's (those were read before)."""
+    from cvxpygen_tpu_torch.solvers import admm_banded_shared as engine
+    real = getattr(engine, name)
+    events = []
+
+    def timed(*args, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real(*args, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    setattr(engine, name, timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve_batch(theta)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    finally:
+        setattr(engine, name, real)
+    k_ms = sum(a.elapsed_time(b) for a, b in events)
+    print(f'# phase 9: where the time goes, B={theta.shape[0]}: {wall:.3f} ms '
+          f'per batch, of which {name} {k_ms:.3f} ms in {len(events)} '
+          f'launches (CUDA events), the rest {wall - k_ms:.3f} ms (torch '
+          f'set-up, matvecs, checks and host) [{card}]')
+
+
+def gate_banded(name, out, refs, dt, launches, first_iters, card,
+                kernel=None):
+    """Every instance solved, finite, within the parity bar of its
+    reference; prints solves/s, the kernel's launches and the first call's
+    iterations beside the timed call's (the float32 M is assembled with
+    atomic adds, so the two may differ where the stopping rule is close to
+    float32 roundoff)."""
+    B = out['status'].shape[0]
+    frac = float(np.mean(out['status'].cpu().numpy() == 1))
+    obj = (out['obj'] + out['d']).double().cpu().numpy()
+    max_rel, n_bad = parity(obj, refs)
+    iters = out['iters'].float()
+    what = f', {kernel} launches {launches}' if kernel else ''
+    print(f'# phase 9: {name}, B={B}: frac_solved {frac}, mean iters '
+          f'{float(iters.mean()):.2f} (max {int(iters.max())}; first call '
+          f'{float(first_iters.mean()):.2f}, max {int(first_iters.max())}), '
+          f'{B / dt:.1f} solves/s, {1e3 * dt:.3f} ms per batch{what}; parity '
+          f'on {len(refs)}: max rel {max_rel:.3e} ({n_bad} non-finite) '
+          f'[{card}]')
+    check(bool(np.all(np.isfinite(out['x'].cpu().numpy()))),
+          f'{name}: non-finite x')
+    check(frac == 1.0, f'{name}: frac_solved {frac} < 1')
+    check(n_bad == 0 and max_rel <= PARITY_BAR,
+          f'{name}: parity {max_rel:.3e} ({n_bad} non-finite)')
+
+
+def phase_banded(card, dev='cuda'):
+    """Phases 7-9: K4 and K5 against their plain versions, then the banded
+    main path at full width.  Returns the kernels' numbers and launches."""
+    import dataclasses
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch import cpg
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.ops import banded_shared_kernel as k45
+    from cvxpygen_tpu_torch.runtime.solver import (CompiledBandedQPSolver,
+                                                   make_compiled_solver)
+    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+
+    t0 = time.perf_counter()
+    cprob = charging_problem(ct)
+    cfam = canonicalize(cprob)
+    cst = ADMMSettings(**CHARGING_SETTINGS)
+    csolver = CompiledBandedQPSolver(cfam, settings=cst, device=dev)
+    check(csolver.struct.nb > 96, f'charging nb {csolver.struct.nb}')
+    ctheta = charging_batch(cfam, cprob, B_CHARGING)
+    print(f'# charging T={CHARGING_T}: n={cfam.n}, m={cfam.m}, '
+          f's={csolver.struct.s}, nb={csolver.struct.nb}, '
+          f'r_max={csolver.grouped.r_max}; set-up '
+          f'{time.perf_counter() - t0:.1f} s')
+    mprob = assign_mpc(mpc_problem(ct, H=30))
+    mfam = canonicalize(mprob)
+    mst = ADMMSettings(**MPC30_SETTINGS)
+    msolver = make_compiled_solver(mfam, 'ADMM', settings=mst, device=dev)
+    check(msolver.solver_name == 'ADMM_BANDED',
+          f'MPC H=30 routes to {msolver.solver_name}')
+    check(msolver.struct.nb <= 96, f'MPC H=30 nb {msolver.struct.nb}')
+    mtheta = x_init_batch(mfam, mprob, B_MAIN)
+    print(f'# MPC H=30: n={mfam.n}, m={mfam.m}, s={msolver.struct.s}, '
+          f'nb={msolver.struct.nb}, r_max={msolver.grouped.r_max}')
+
+    k4_numbers = compare_k4(csolver, ctheta, cst, card)
+    k5_numbers = compare_k5(msolver, mtheta[:B_CMP], mtheta, mst, card)
+
+    # float64 references (the dense ADMM loops at eps 1e-6 on the card;
+    # the NumPy oracle for MPC H=30)
+    t0 = time.perf_counter()
+    cbase = cfam.pack_theta(params=cprob.parameters())
+    crefs, citers = dense_refs(
+        cfam, np.vstack([cbase[None], ctheta[:N_REF_CHARGING]]), dev,
+        shared=True)
+    crefs_same, _ = dense_refs(cfam, ctheta[:N_REF_CHARGING], dev,
+                               shared=True, eps_abs=cst.eps_abs,
+                               eps_rel=cst.eps_rel,
+                               check_interval=cst.check_interval)
+    same_gap, _ = parity(crefs_same, crefs[1:])
+    ptheta = charging_batch(cfam, cprob, B_CHARGING_PER, vary_gamma=True)
+    prefs, piters = dense_refs(cfam, ptheta[:N_REF_CHARGING_PER], dev,
+                               shared=False)
+    mrefs = oracle_objs(mfam, mtheta, N_ORACLE_MPC30)
+    print(f'# phase 9: references {time.perf_counter() - t0:.1f} s (dense '
+          f'float64 ADMM iterations: shared {citers.tolist()}, per-instance '
+          f'{piters.tolist()})')
+
+    # 1-2: charging through generate_code -> solve(method='CPG') and
+    # solve_batch at B=256; both launch K4
+    k45.cr_solve.launches = 0
+    code_dir = os.path.join(ROOT, 'build', 'chip_smoke', 'charging_code')
+    cpg.generate_code(cprob, code_dir=code_dir, solver='BANDED',
+                      solver_opts=CHARGING_SETTINGS, device=dev)
+    t0 = time.perf_counter()
+    val = cprob.solve(method='CPG')
+    t_cpg = time.perf_counter() - t0
+    cpg_launches = k45.cr_solve.launches
+    rel = abs(val - crefs[0]) / max(1.0, abs(crefs[0]))
+    print(f'# phase 9: charging T={CHARGING_T} solve(method=CPG): '
+          f'{cprob.status}, objective {val:.6f} vs float64 {crefs[0]:.6f} '
+          f'(rel {rel:.2e}), {cprob.solver_stats.num_iters} iters, '
+          f'{1e3 * t_cpg:.1f} ms first call, K4 launches {cpg_launches} '
+          f'[{card}]')
+    check(cprob.status == 'optimal', f'charging CPG status {cprob.status}')
+    check(rel <= PARITY_BAR, f'charging CPG objective rel {rel:.3e}')
+    check(cpg_launches > 0, 'the charging CPG solve did not launch K4')
+    out, dt, k4_launches, first = time_solve(csolver, ctheta, reps=2,
+                                             counter=k45.cr_solve)
+    obj = (out['obj'] + out['d']).double().cpu().numpy()
+    gap, _ = parity(obj, crefs[1:])
+    print(f'# phase 9: charging at eps {cst.eps_abs:g}: objective to the '
+          f'eps 1e-6 float64 reference {gap:.3e}; the dense float64 ADMM at '
+          f'eps {cst.eps_abs:g} is {same_gap:.3e} from it')
+    gate_banded(f'charging T={CHARGING_T} shared P/A (K4 engine), parity '
+                f'to the dense float64 ADMM at eps {cst.eps_abs:g}', out,
+                crefs_same, dt, k4_launches, first, card, 'K4')
+    check(k4_launches > 0, 'the charging path did not launch K4')
+    tight = dataclasses.replace(cst, eps_abs=CHARGING_TIGHT_EPS,
+                                eps_rel=CHARGING_TIGHT_EPS)
+    out, dt, tight_launches, first = time_solve(
+        csolver, ctheta, reps=1, counter=k45.cr_solve, settings=tight)
+    gate_banded(f'charging T={CHARGING_T} shared P/A (K4 engine) at eps '
+                f'{CHARGING_TIGHT_EPS:g}, parity to eps 1e-6', out,
+                crefs[1:], dt, tight_launches, first, card, 'K4')
+    kernel_share(csolver, ctheta, 'cr_solve', card)
+
+    # 3: MPC H=30 through make_compiled_solver(fam, 'ADMM') -> K5
+    out, dt, k5_launches, first = time_solve(
+        msolver, mtheta, reps=3, counter=k45.banded_shared_chunk)
+    gate_banded('MPC H=30 shared P/A (K5 engine)', out, mrefs, dt,
+                k5_launches, first, card, 'K5')
+    check(k5_launches > 0, 'the MPC H=30 path did not launch K5')
+    kernel_share(msolver, mtheta, 'banded_shared_chunk', card)
+
+    # 4: the per-instance engine (gamma varies, so P does): no kernel
+    check(not csolver._use_shared(ptheta, 'auto'),
+          'the per-instance charging batch would take the shared path')
+    out, dt, _, first = time_solve(csolver, ptheta, reps=1)
+    gate_banded(f'charging T={CHARGING_T} per-instance P', out, prefs, dt,
+                0, first, card)
+    return k4_numbers, k4_launches, k5_numbers, k5_launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke.py: no CUDA device')
@@ -919,6 +1522,7 @@ def main():
     k2_numbers = compare_k2(fam, prob, st, card, portfolio)
     k2_launches, k3_launches = phase_per_instance(fam, prob, refs, card,
                                                   portfolio)
+    k4_numbers, k4_launches, k5_numbers, k5_launches = phase_banded(card)
     kernels = [
         dict(name='admm_shared_solve', route='cuda',
              source='cvxpygen_tpu_torch/csrc/admm_shared.cu',
@@ -931,7 +1535,15 @@ def main():
         dict(name='admm_iterate', route='cuda',
              source='cvxpygen_tpu_torch/csrc/admm_iterate.cu',
              replaces='cvxpygen_tpu/ops/admm_kernel.py:25',
-             launches=k3_launches, library_ms=None, **k3_numbers)]
+             launches=k3_launches, library_ms=None, **k3_numbers),
+        dict(name='cr_solve', route='cuda',
+             source='cvxpygen_tpu_torch/csrc/cr_solve.cu',
+             replaces='cvxpygen_tpu/ops/banded_shared_kernel.py:132',
+             launches=k4_launches, **k4_numbers),
+        dict(name='banded_shared_chunk', route='cuda',
+             source='cvxpygen_tpu_torch/csrc/banded_chunk.cu',
+             replaces='cvxpygen_tpu/ops/banded_shared_kernel.py:173',
+             launches=k5_launches, **k5_numbers)]
     print(f'# chip_smoke.py: all phases {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(card)

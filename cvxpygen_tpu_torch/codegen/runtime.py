@@ -19,7 +19,7 @@ import numpy as np
 from ..canon.canonicalizer import Family, retrieve_duals, retrieve_primal
 from ..problem import SolverStats
 from ..runtime.solver import _status_str, make_compiled_solver
-from ..solvers.registry import ADMM_ALIASES, ADMM_SETTINGS
+from ..solvers.registry import engine_registry
 
 _NO_GRADIENT = ('gradient=True needs the QP differentiation '
                 '(autodiff/qp_diff.py), which is not ported yet: ROADMAP.md '
@@ -56,10 +56,13 @@ class CpgRuntime:
         self.enable_settings = enable_settings or []
         self.solver = make_compiled_solver(family, solver_name, dtype=dtype,
                                            device=device)
+        # the banded engine takes the ADMM settings
+        self._registry, self._aliases = engine_registry(
+            self.solver.solver_name)
         # parity: reference configure_settings warns when enable_settings
         # names a setting the solver does not have (_interface.py:125-130)
         for s in self.enable_settings:
-            if s not in ADMM_SETTINGS and s not in ADMM_ALIASES:
+            if s not in self._registry and s not in self._aliases:
                 warnings.warn(f'Cannot enable setting {s} for solver '
                               f'{solver_name}')
         if solver_opts:
@@ -86,8 +89,8 @@ class CpgRuntime:
         field_names = {f.name for f in dataclasses.fields(base)}
         upd = {}
         for k, v in kwargs.items():
-            k2 = ADMM_ALIASES.get(k, k)
-            reg_entry = ADMM_SETTINGS.get(k2)
+            k2 = self._aliases.get(k, k)
+            reg_entry = self._registry.get(k2)
             if reg_entry is not None and not reg_entry.enabled \
                     and k2 not in self.enable_settings \
                     and k not in self.enable_settings:

@@ -11,8 +11,10 @@ compiler.py:33-40).
 The artifact is the pickled Family (the parametric canonicalization maps --
 the reference's cpg_workspace.c as arrays); the torch solve path is built
 when the package is imported.  This slice of the port generates ADMM
-packages for QP-form families; the embedded-C artifact, the explicit solver
-and the conic engines arrive with later slices (ROADMAP.md).
+packages for QP-form families (dense, or block-banded with
+``solver='BANDED'``, which ADMM also picks for banded families with
+n >= 512); the embedded-C artifact, the explicit solver and the conic
+engines arrive with later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import sys
 
 from .canon.canonicalizer import canonicalize
 
-_QP_SOLVERS = ('ADMM', 'OSQP')
+_QP_SOLVERS = ('ADMM', 'OSQP', 'BANDED', 'ADMM_BANDED')
 
 
 def generate_code(problem, code_dir='cpg_code', solver=None, solver_opts=None,
@@ -49,7 +51,7 @@ def generate_code(problem, code_dir='cpg_code', solver=None, solver_opts=None,
         raise NotImplementedError(
             f'solver {solver!r} is not ported yet (this slice of the port '
             'generates ADMM packages for QP-form families): ROADMAP.md '
-            'queue 1 items 7-9')
+            'queue 1 items 8-9')
     if has_cones:
         raise ValueError(f'{solver}: QP-form solver but family has cones')
     if gradient:

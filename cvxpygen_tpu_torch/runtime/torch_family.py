@@ -189,6 +189,26 @@ def canon_batch_shared(tf: TorchFamily, theta):
     return dict(P=P, q=q, d=d, A=A, b=b)
 
 
+def canon_batch_sparse(tf: TorchFamily, theta):
+    """theta (B, p) -> dict(pvals, q, d, avals, b): the canonical NONZERO
+    values only (no dense P/A), the input of the banded solvers.  Needs a
+    scatter-mode family (``from_family(..., force_scatter=True)``)."""
+    if tf.dense_mode:
+        raise ValueError('canon_batch_sparse needs a scatter-mode '
+                         'TorchFamily')
+    tt = _theta_t(tf, theta)
+    vals = tt @ tf.maps.T
+    n, m = tf.n, tf.m
+    o = 0
+    pvals = vals[:, o:o + tf.nP]; o += tf.nP
+    q = vals[:, o:o + n]; o += n
+    d = vals[:, o]; o += 1
+    avals = vals[:, o:o + tf.nA]; o += tf.nA
+    b = vals[:, o:o + m]
+    d = d + _d_quad_term(tf, tt)
+    return dict(pvals=pvals, q=q, d=d, avals=avals, b=b)
+
+
 def qp_bounds_batch(tf: TorchFamily, b):
     """OSQP-style box (l, u) from the aff-convention offsets b (B, m):
     zero rows: l = u = -b; nonneg rows: -b <= A x <= +inf."""

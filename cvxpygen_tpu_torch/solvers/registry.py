@@ -43,3 +43,12 @@ ADMM_SETTINGS['verbose'] = Setting('bool', False, enabled=False)
 ADMM_ALIASES: Dict[str, str] = {
     'warm_start': 'warm_starting',
 }
+
+
+def engine_registry(engine):
+    """(settings registry, aliases) of a compiled solver's engine name; the
+    banded engine ``ADMM_BANDED`` runs the ADMM settings."""
+    engine = 'ADMM' if engine == 'ADMM_BANDED' else engine
+    if engine != 'ADMM':
+        raise ValueError(f'no settings registry for engine {engine!r}')
+    return ADMM_SETTINGS, ADMM_ALIASES

@@ -50,7 +50,12 @@ def test_import_leaves_jax_unloaded():
             'cvxpygen_tpu_torch.runtime.solver, '
             'cvxpygen_tpu_torch.ops.admm_shared_kernel, '
             'cvxpygen_tpu_torch.ops.admm_kernel, '
-            'cvxpygen_tpu_torch.ops.admm_full_kernel; '
+            'cvxpygen_tpu_torch.ops.admm_full_kernel, '
+            'cvxpygen_tpu_torch.ops.block_tridiag, '
+            'cvxpygen_tpu_torch.ops.banded_grouped, '
+            'cvxpygen_tpu_torch.ops.banded_shared_kernel, '
+            'cvxpygen_tpu_torch.solvers.admm_banded, '
+            'cvxpygen_tpu_torch.solvers.admm_banded_shared; '
             'print(sorted(m for m in sys.modules if m == "cvxpygen_tpu" '
             'or m.startswith("cvxpygen_tpu.") or m.split(".")[0] == "jax"))')
     env = dict(os.environ, PYTHONPATH=_ROOT)
