@@ -7,9 +7,10 @@ Run from the root of the repository:  python3 chip_smoke.py
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. build kernels K1 (csrc/admm_shared.cu), K2 (csrc/admm_full.cu), K3
-   (csrc/admm_iterate.cu), K4 (csrc/cr_solve.cu) and K5
-   (csrc/banded_chunk.cu), one nvcc for sm_90a each, all started together,
-   and identify the card;
+   (csrc/admm_iterate.cu), K4 (csrc/cr_solve.cu), K5
+   (csrc/banded_chunk.cu), K6 (csrc/ldl_factor.cu), K7
+   (csrc/ldl_inverse.cu) and K8 (csrc/ldl_solve.cu), one nvcc for sm_90a
+   each, all started together, and identify the card;
 2. K1 against its plain torch version on the card, on the scaled MPC data
    (n=222, m=252) that the shared main path hands it, at B=256 and at the
    main path's B=2048, float32, adaptive rho on, the same chunk for both:
@@ -70,8 +71,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    those of one solve_batch at the bench's settings (the count set to 0
    just before it); where the time goes (each kernel's CUDA-event time
    inside one more solve);
-10. a JSON line with each kernel's launches, error, times and bound;
-11. the card's name and power limit (nvidia-smi), then the result line.
+10. K6 (csrc/ldl_factor.cu), K7 (csrc/ldl_inverse.cu) and K8
+   (csrc/ldl_solve.cu) against their plain versions on the KKT matrices that
+   the entropy family's IPM solve hands K6 (n=32: N=161, Np=176, B=1024,
+   float32), the first iteration's K and each instance's last
+   (worst-conditioned) one: L, d and Linv within LDL_TOL * max(1,
+   |v|_inf) per instance of the plain version's on the first, within
+   twice the plain version's distance from the float64 factor on the
+   last; Kinv and the x of a random b from K6's factor
+   within twice their plain versions' distance from the float64
+   application of that factor, both per instance by max(1, |v|_inf) and
+   by the median entry's relative error; the same at n=64 (N=321,
+   Np=336, B=64: K6's device-scratch path); K7 at B=70000 (above grid.y's
+   limit, two launches, N=7); each kernel's time, its plain version's,
+   the library call's and the function's bound;
+11. the conic IPM main path at full width: the entropy family
+   (bench.py:395-457, B=1024, c ~ N(0, 1) from default_rng(5), settings of
+   bench.py:424-429) through CompiledConicSolver with K6 + K7 and with
+   ldl_inverse=False (K6 + K8), every instance solved and the objective
+   within 1e-2 of logsumexp(c); where the time goes (K6 and K7 by CUDA
+   events inside one more solve); one instance through
+   generate_code(solver='CLARABEL') -> solve(method='CPG'); the ADP SOCP
+   family (bench.py:347-392) through the default generate_code route (the
+   IPM, 'schur' mode: no kernel), solve(method='CPG') and solve_batch at
+   B=1024, within 1e-2 of the float64 oracle on 16 instances, and the same
+   batch through kkt_solver='ldl' with ldl_two_level=True (K6 + K7 on the
+   saddle block once and on the Schur complement each iteration);
+12. a JSON line with each kernel's launches, error, times and bound;
+13. the card's name and power limit (nvidia-smi), then the result line.
 
 ``python3 chip_smoke.py --block-sweep`` instead builds the kernels and runs
 K2 on the portfolio and MPC general batches at several blocks, printing
@@ -264,17 +291,21 @@ def k1_bound(n, m, B, iters, refactors, st):
 
 
 def phase_build():
-    """Build K1-K5 at once: one nvcc per source, in parallel."""
+    """Build K1-K8 at once: one nvcc per source, in parallel."""
     from cvxpygen_tpu_torch.ops import admm_full_kernel as k2
     from cvxpygen_tpu_torch.ops import admm_kernel as k3
     from cvxpygen_tpu_torch.ops import admm_shared_kernel as k1
     from cvxpygen_tpu_torch.ops import banded_shared_kernel as k45
+    from cvxpygen_tpu_torch.ops import ldl_kernel as k678
     t0 = time.perf_counter()
     srcs = (('admm_shared.cu', k1.build_kernel),
             ('admm_full.cu', k2.build_kernel),
             ('admm_iterate.cu', k3.build_kernel),
             ('cr_solve.cu', k45.build_cr_kernel),
-            ('banded_chunk.cu', k45.build_chunk_kernel))
+            ('banded_chunk.cu', k45.build_chunk_kernel),
+            ('ldl_factor.cu', k678.build_factor_kernel),
+            ('ldl_inverse.cu', k678.build_inverse_kernel),
+            ('ldl_solve.cu', k678.build_solve_kernel))
     with ThreadPoolExecutor(len(srcs)) as ex:
         futs = [(src, ex.submit(build, True)) for src, build in srcs]
         for src, fut in futs:
@@ -1500,6 +1531,537 @@ def phase_banded(card, dev='cuda'):
     return k4_numbers, k4_launches, k5_numbers, k5_launches
 
 
+# ---------------------------------------------------------------------------
+# phases 10-11: the conic interior-point path (kernels K6, K7, K8)
+# ---------------------------------------------------------------------------
+
+# bench.py:395-457, the entropy row: n = 32, B = 1024 distinct c ~ N(0, 1)
+# from default_rng(5), the settings of bench.py:424-429 in float32
+ENTROPY_N = 32
+ENTROPY_N_LARGE = 64        # N = 321, Np = 336: K6's device-scratch path
+B_ENTROPY = 1024
+B_ENTROPY_LARGE = 64
+ENTROPY_SETTINGS = dict(max_iter=60, tol_feas=1e-3, tol_gap=1e-3)
+# bench.py:347-392, the ADP SOCP row: B = 1024, f scaled by U(0.5, 1.5)
+# from default_rng(1), the settings of bench.py:368-371 in float32
+B_ADP = 1024
+ADP_SETTINGS = dict(max_iter=100, tol_feas=3e-5, tol_gap=3e-5)
+N_ORACLE_ADP = 16
+# K6 against its plain version on the IPM's K: L, d and Linv within
+# LDL_TOL * max(1, |v|_inf) per instance (both factor the same float32 K in
+# the same panel order; their dot products sum in other orders, and the
+# unpivoted elimination carries that roundoff through the panels)
+LDL_TOL = 1e-4
+# K7's inverse and K8's solve, on one factor: their distance from the
+# float64 application of that factor within twice their plain versions',
+# plus this floor, by two measures (entry_errs)
+LDL_APPLY_FLOOR = 1e-6
+
+
+def entropy_problem(ct, n):
+    x = ct.Variable(n, name='x')
+    c = ct.Parameter(n, name='c')
+    return ct.Problem(ct.Maximize(c @ x + ct.sum(ct.entr(x))),
+                      [ct.sum(x) == 1.0]), c
+
+
+def entropy_batch(fam, prob, cs):
+    base = fam.pack_theta(params=prob.parameters())
+    ci = [pi for pi in fam.param_info if pi.name == 'c'][0]
+    theta = np.tile(base, (cs.shape[0], 1))
+    theta[:, ci.offset:ci.offset + ci.flat_size] = cs
+    return theta
+
+
+def ldl_dims(N, p=16):
+    nbp = -(-N // p)
+    return nbp * p, nbp
+
+
+def bound(ops, nbytes):
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def k6_bound(B, N, p=16):
+    """The function's least work, not this kernel's: the lower triangle of
+    the symmetric K in; L (B, Np, Np), d and Linv out, written in full as
+    the contract's dense outputs; N^3 / 3 FLOP for the LDL^T and p^3 / 3
+    per panel for its unit-lower inverse."""
+    Np, nbp = ldl_dims(N, p)
+    ops = B * (N ** 3 / 3 + nbp * p ** 3 / 3)
+    nbytes = 4.0 * (B * (N * (N + 1) / 2 + Np * Np + Np + Np * p) + Np)
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+def _factor_words(N, p):
+    """Floats of a factor that a use of it must read: the strictly lower
+    triangle of L over the N unpadded rows (its diagonal is 1, its tail the
+    identity), d, and the strictly lower triangles of the panel inverses."""
+    nbp = ldl_dims(N, p)[1]
+    return N * (N - 1) / 2 + N + nbp * p * (p - 1) / 2
+
+
+def k7_bound(B, N, p=16):
+    """The function's least work: the factor in, Kinv (B, N, N) out; the
+    2 N^3 / 3 FLOP of an inverse from an LDL^T (L^-1, then the symmetric
+    product L^-T D^-1 L^-1)."""
+    ops = B * 2 * N ** 3 / 3
+    nbytes = 4.0 * B * (_factor_words(N, p) + N * N)
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+def k8_bound(B, N, p=16):
+    """The function's least work: the factor and b in, x out; two
+    unit-triangular sweeps and the diagonal, 2 N^2 - N FLOP."""
+    ops = B * (2 * N * N - N)
+    nbytes = 4.0 * B * (_factor_words(N, p) + 2 * N)
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+class _Captured(Exception):
+    pass
+
+
+def capture_kkt(solver, theta, first_only=False):
+    """The KKT matrices that the IPM's 'ldl' mode hands kernel K6 in one
+    solve_batch: the first iteration's K, and each instance's K at its own
+    last iteration (its worst-conditioned one; instances that finished are
+    frozen and their later K never used), each with the signs and the
+    pivot floor.  ``first_only`` stops the solve after the first."""
+    from cvxpygen_tpu_torch.solvers import ipm as ipm_mod
+    real = ipm_mod.ldl_factor_kernel
+    seen = []
+
+    def grab(K, signs, dyn_delta, panel=16):
+        seen.append(K.clone())
+        if first_only:
+            raise _Captured()
+        return real(K, signs, dyn_delta, panel)
+
+    ipm_mod.ldl_factor_kernel = grab
+    try:
+        out = solver.solve_batch(theta)
+        last = torch.stack([seen[int(t) - 1][i] for i, t in
+                            enumerate(out['iters'].tolist())])
+    except _Captured:
+        last = None
+    finally:
+        ipm_mod.ldl_factor_kernel = real
+    return seen[0], last
+
+
+def inst_err(a, b):
+    """Per-instance max |a - b| / max(1, |b|_inf) (leading axis = batch)."""
+    a = a.double().flatten(1)
+    b = b.double().flatten(1)
+    den = torch.clamp(b.abs().amax(dim=1), min=1.0)
+    return (a - b).abs().amax(dim=1) / den
+
+
+def entry_errs(a, e):
+    """Two per-instance errors of ``a`` against ``e``, worst instance: the
+    largest |a - e| / max(1, |e|_inf), and the median over entries of
+    |a - e| / |e| (entries with e != 0), which the few large entries of an
+    ill-conditioned K cannot hide."""
+    a = a.double().flatten(1)
+    e = e.double().flatten(1)
+    rel = torch.where(e != 0, (a - e).abs() / e.abs(),
+                      torch.full_like(e, float('nan')))
+    return (float(inst_err(a, e).max()),
+            float(rel.nanmedian(dim=1).values.max()))
+
+
+def compare_ldl(K, signs, dd, label, factor_tol=LDL_TOL):
+    """K6 against its plain version on one KKT batch: L, d and Linv within
+    ``factor_tol`` * max(1, |v|_inf) per instance; with ``factor_tol``
+    None, both factors held to the float64 factor of the same K instead,
+    by the rule below.  Then K7's inverse and K8's x of a random b, from
+    K6's factor, each beside its plain version on the same factor, both
+    held to the float64 application of that factor: the kernel's error
+    within twice the plain version's plus LDL_APPLY_FLOOR, by both
+    measures of entry_errs.  (The IPM's K has pivots at the regularization
+    floor, so float32 roundoff is amplified by cond(K'); two float32
+    results then differ by far more than LDL_TOL, and float64 shows which
+    of the two is closer.)  Returns the factor's worst relative distance
+    to its plain version and, per held output, its errors and its
+    distance to its plain version."""
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
+    check(bool(torch.isfinite(K).all()), f'{label}: non-finite K')
+    with full_f32_matmul():
+        fac = lk.ldl_factor_kernel(K, signs, dd)
+        ref = lk.ldl_factor_plain(K, signs, dd)
+        errs = {k: inst_err(fac[k], ref[k]) for k in ('L', 'd', 'Linv')}
+        held = {}
+        if factor_tol is None:
+            ref64 = lk.ldl_factor_plain(K.double(), signs, dd)
+            for k in ('L', 'd', 'Linv'):
+                held[k] = (entry_errs(fac[k], ref64[k]),
+                           entry_errs(ref[k], ref64[k]),
+                           float(errs[k].max()))
+        b = torch.randn(K.shape[:2], generator=torch.Generator(
+            device=K.device).manual_seed(0), device=K.device)
+        fac64 = dict(fac, **{k: fac[k].double() for k in ('L', 'd', 'Linv')})
+        for name, kern, plain, exact in (
+                ('Kinv', lk.ldl_inverse_kernel(fac),
+                 lk.ldl_inverse_plain(fac), lk.ldl_inverse_plain(fac64)),
+                ('x', lk.ldl_solve_kernel(fac, b), lk.ldl_solve_plain(fac, b),
+                 lk.ldl_solve_plain(fac64, b.double()))):
+            held[name] = (entry_errs(kern, exact), entry_errs(plain, exact),
+                          float(inst_err(kern, plain).max()))
+    torch.cuda.synchronize()
+    worst = {k: float(v.max()) for k, v in errs.items()}
+    print(f'# phase 10: {label}: B={K.shape[0]}, N={K.shape[1]}, '
+          f'Np={fac["Np"]}: K6 to its plain version, max |d| / max(1, '
+          f'|v|_inf) per instance '
+          + ', '.join(f'{k} {v:.3e}' for k, v in worst.items())
+          + '; kernel / plain against float64 (the factor of K; the '
+          'application of K6\'s factor), max |d| / max(1, |v|_inf) and '
+          'median entry |d| / |v|, worst instance (kernel to plain): '
+          + ', '.join(f'{k} {a[0]:.3e} / {b[0]:.3e} and {a[1]:.3e} / '
+                      f'{b[1]:.3e} ({c:.3e})'
+                      for k, (a, b, c) in held.items()))
+    if factor_tol is not None:
+        for k, v in worst.items():
+            check(v <= factor_tol,
+                  f'{label}: {k} differs by {v:.3e} > {factor_tol}')
+    for k, (ek, ep, _) in held.items():
+        for what, a, b in zip(('max', 'median entry'), ek, ep):
+            check(a <= 2 * b + LDL_APPLY_FLOOR, f'{label}: {k} {what} error '
+                  f'{a:.3e} > 2 x plain {b:.3e} + {LDL_APPLY_FLOOR}')
+    return max(worst.values()), held
+
+
+def k7_large_batch(B=70000, n=3, m=4):
+    """K7 at a batch above grid.y's 65535 (two launches of the kernel in
+    one call): a small well-conditioned quasidefinite K (N=7), its inverse
+    within LDL_TOL * max(1, |v|_inf) of the plain version's."""
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
+    g = torch.Generator(device='cuda').manual_seed(2)
+    A = torch.randn((B, n, n), generator=g, device='cuda')
+    C = torch.randn((B, m, n), generator=g, device='cuda')
+    K = torch.zeros((B, n + m, n + m), device='cuda')
+    K[:, :n, :n] = A @ A.transpose(1, 2) + torch.eye(n, device='cuda')
+    K[:, n:, :n] = C
+    K[:, :n, n:] = C.transpose(1, 2)
+    K[:, n:, n:] = -torch.eye(m, device='cuda')
+    signs = np.concatenate([np.ones(n), -np.ones(m)])
+    with full_f32_matmul():
+        fac = lk.ldl_factor_kernel(K, signs, 1e-4)
+        before = lk.ldl_inverse_kernel.launches
+        Kinv = lk.ldl_inverse_kernel(fac)
+        launches = lk.ldl_inverse_kernel.launches - before
+        err = float(inst_err(Kinv, lk.ldl_inverse_plain(fac)).max())
+    print(f'# phase 10: K7 at B={B} ({launches} launches), N={n + m}: max '
+          f'|d| / max(1, |v|_inf) to its plain version {err:.3e}')
+    check(launches == 2, f'K7 at B={B}: {launches} launches')
+    check(err <= LDL_TOL, f'K7 at B={B}: {err:.3e} > {LDL_TOL}')
+
+
+def time_ldl(K, signs, dd, card):
+    """Kernel, plain and library times of K6, K7 and K8 at the main shapes
+    (CUDA events), with the bounds."""
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    B, N, _ = K.shape
+    fac = lk.ldl_factor_kernel(K, signs, dd)
+    ref = lk.ldl_factor_plain(K, signs, dd)
+    b = torch.randn((B, N), device=K.device)
+    out = {}
+    k6 = (cuda_ms(lambda: lk.ldl_factor_kernel(K, signs, dd), 10)[0],
+          cuda_ms(lambda: lk.ldl_factor_plain(K, signs, dd), 2)[0])
+    k7 = (cuda_ms(lambda: lk.ldl_inverse_kernel(fac), 10)[0],
+          cuda_ms(lambda: lk.ldl_inverse_plain(ref), 2)[0])
+    k8 = (cuda_ms(lambda: lk.ldl_solve_kernel(fac, b), 20)[0],
+          cuda_ms(lambda: lk.ldl_solve_plain(ref, b), 2)[0])
+    # library yardsticks (timed here, used nowhere in the port): the
+    # pivoted LDL of the same K, the inverse from K, the pivoted solve
+    LD, piv = torch.linalg.ldl_factor(K)
+    lib = (cuda_ms(lambda: torch.linalg.ldl_factor(K), 2)[0],
+           cuda_ms(lambda: torch.linalg.inv(K), 3)[0],
+           cuda_ms(lambda: torch.linalg.ldl_solve(LD, piv, b[..., None]),
+                   3)[0])
+    for name, (ms, plain_ms), lib_ms, bfn in (
+            ('ldl_factor', k6, lib[0], k6_bound),
+            ('ldl_inverse', k7, lib[1], k7_bound),
+            ('ldl_solve', k8, lib[2], k8_bound)):
+        bound_ms, bound_by, ops, nbytes = bfn(B, N)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms)
+        print(f'# phase 10: {name} at B={B}, N={N}: kernel {ms:.4f} ms, '
+              f'plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound '
+              f'{bound_ms:.5f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP FP32, '
+              f'{nbytes / 1e6:.1f} MB) [{card}]')
+    return out
+
+
+def ldl_share(solver, theta, card):
+    """One more entropy solve with CUDA events around each launch of K6 and
+    K7: their summed device time against the solve's wall time."""
+    from cvxpygen_tpu_torch.solvers import ipm as ipm_mod
+    names = ('ldl_factor_kernel', 'ldl_inverse_kernel')
+    reals = {n: getattr(ipm_mod, n) for n in names}
+    events = {n: [] for n in names}
+
+    def timed(name):
+        def fn(*args, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = reals[name](*args, **kw)
+            ev[1].record()
+            events[name].append(ev)
+            return out
+        return fn
+
+    for n in names:
+        setattr(ipm_mod, n, timed(n))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve_batch(theta)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for n in names:
+            setattr(ipm_mod, n, reals[n])
+    ks = {n: sum(a.elapsed_time(b) for a, b in evs)
+          for n, evs in events.items()}
+    rest = wall - sum(ks.values())
+    print(f'# phase 11: where the time goes, entropy B={theta.shape[0]}: '
+          f'{wall:.3f} ms per batch, of which K6 {ks[names[0]]:.3f} ms and '
+          f'K7 {ks[names[1]]:.3f} ms in {len(events[names[0]])} launches '
+          f'each (CUDA events), the rest {rest:.3f} ms (KKT assembly, '
+          f'cone scalings, line searches, checks and host) [{card}]')
+
+
+def gate_conic(name, out, refs, dt, launches, card, maximize=False):
+    """Every instance solved, finite, within the parity bar of its
+    reference; prints solves/s, mean iterations and the launches."""
+    B = out['status'].shape[0]
+    frac = float(np.mean(out['status'].cpu().numpy() == 1))
+    obj = (out['obj'] + out['d']).double().cpu().numpy()
+    if maximize:
+        obj = -obj
+    max_rel, n_bad = parity(obj, refs)
+    iters = out['iters'].float()
+    print(f'# phase 11: {name}, B={B}: frac_solved {frac}, mean iters '
+          f'{float(iters.mean()):.2f} (max {int(iters.max())}), '
+          f'{B / dt:.1f} solves/s, {1e3 * dt:.3f} ms per batch, launches '
+          f'{launches}; parity on {len(refs)}: max rel {max_rel:.3e} '
+          f'({n_bad} non-finite) [{card}]')
+    check(bool(np.all(np.isfinite(out['x'].cpu().numpy()))),
+          f'{name}: non-finite x')
+    check(frac == 1.0, f'{name}: frac_solved {frac} < 1')
+    check(n_bad == 0 and max_rel <= PARITY_BAR,
+          f'{name}: parity {max_rel:.3e} ({n_bad} non-finite)')
+
+
+def phase_conic(card, dev='cuda'):
+    """Phases 10-11: K6-K8 against their plain versions on the entropy
+    family's KKT matrices, then the conic IPM main path at full width.
+    Returns the kernels' numbers and launches."""
+    import dataclasses
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch import cpg
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    from cvxpygen_tpu_torch.ops.ldl_batched import default_delta
+    from cvxpygen_tpu_torch.runtime.solver import CompiledConicSolver
+    from cvxpygen_tpu_torch.solvers.ipm import IPMSettings
+
+    # the entropy family at n = 32 (N = 161, Np = 176) and n = 64
+    eprob, ec = entropy_problem(ct, ENTROPY_N)
+    cs = np.random.default_rng(5).normal(size=(B_ENTROPY, ENTROPY_N))
+    ec.value = cs[0]
+    efam = canonicalize(eprob)
+    etheta = entropy_batch(efam, eprob, cs)
+    lse = list(np.log(np.sum(np.exp(cs), axis=1)))
+    est = IPMSettings.for_dtype(torch.float32, **ENTROPY_SETTINGS)
+    esolver = CompiledConicSolver(efam, settings=est, dtype=torch.float32,
+                                  device=dev)
+    check(esolver.jf.maps.dtype == torch.float32, 'float32 on the card')
+    check(esolver.P_is_zero, 'entropy: P != 0')
+    lprob, lc = entropy_problem(ct, ENTROPY_N_LARGE)
+    lcs = np.random.default_rng(6).normal(size=(B_ENTROPY_LARGE,
+                                                ENTROPY_N_LARGE))
+    lc.value = lcs[0]
+    lfam = canonicalize(lprob)
+    lsolver = CompiledConicSolver(lfam, settings=est, dtype=torch.float32,
+                                  device=dev)
+
+    # phase 10: the kernels on the KKT matrices of the entropy solve
+    t0 = time.perf_counter()
+    K0, K1 = capture_kkt(esolver, etheta)
+    KL, _ = capture_kkt(lsolver, entropy_batch(lfam, lprob, lcs),
+                        first_only=True)
+    # the IPM's 'ldl' pivot signs (+1 on x, -1 on the zero and cone rows)
+    # and pivot floor
+    s0 = np.concatenate([np.ones(efam.n), -np.ones(efam.m)])
+    sL = np.concatenate([np.ones(lfam.n), -np.ones(lfam.m)])
+    dd = default_delta(torch.float32)
+    print(f'# phase 10: entropy n={ENTROPY_N}: canonical n={efam.n}, '
+          f'mz={efam.n_zero}, {efam.n_exp} exp cones, KKT N={K0.shape[1]}; '
+          f'n={ENTROPY_N_LARGE}: N={KL.shape[1]}; captured in '
+          f'{time.perf_counter() - t0:.1f} s')
+    check(ldl_dims(K0.shape[1])[0] == 176 and ldl_dims(KL.shape[1])[0] == 336,
+          'entropy KKT shapes')
+    err_first, apply_first = compare_ldl(K0, s0, dd,
+                                         'first iteration, Np=176')
+    compare_ldl(KL, sL, dd, 'first iteration, Np=336 (device scratch)')
+    check(lk._LIB_FACTOR.ldl_factor_smem_bytes(336) == 0
+          and lk._LIB_FACTOR.ldl_factor_smem_bytes(176) > 0,
+          'K6 storage rule')
+    # the last K: the two float32 factors differ by up to about 5e-4 (d)
+    # there, so both are held to the float64 factor
+    compare_ldl(K1, s0, dd, "each instance's last iteration, Np=176",
+                factor_tol=None)
+    k7_large_batch()
+    numbers = time_ldl(K0, s0, dd, card)
+    # max_abs_err: K6 to its plain version; K7 and K8 to theirs (both
+    # relative to max(1, |v|_inf) per instance, the first iteration's K)
+    numbers['ldl_factor']['max_abs_err'] = err_first
+    numbers['ldl_inverse']['max_abs_err'] = apply_first['Kinv'][2]
+    numbers['ldl_solve']['max_abs_err'] = apply_first['x'][2]
+
+    # phase 11: the main path at full width
+    launches = {}
+    for label, st in (('K6 + K7', est),
+                      ('K6 + K8', dataclasses.replace(est,
+                                                      ldl_inverse=False))):
+        lk.ldl_factor_kernel.launches = 0
+        lk.ldl_inverse_kernel.launches = 0
+        lk.ldl_solve_kernel.launches = 0
+        out = esolver.solve_batch(etheta, settings=st)
+        counts = (lk.ldl_factor_kernel.launches,
+                  lk.ldl_inverse_kernel.launches,
+                  lk.ldl_solve_kernel.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps = 3
+        for _ in range(reps):
+            out = esolver.solve_batch(etheta, settings=st)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / reps
+        gate_conic(f'entropy n={ENTROPY_N} through {label}', out, lse, dt,
+                   f'K6 {counts[0]}, K7 {counts[1]}, K8 {counts[2]}', card,
+                   maximize=True)
+        check(counts[0] > 0, f'{label}: K6 was not launched')
+        if st.ldl_inverse:
+            check(counts[1] > 0 and counts[2] == 0, f'{label}: launches')
+            launches['ldl_factor'] = counts[0]
+            launches['ldl_inverse'] = counts[1]
+        else:
+            check(counts[2] > 0 and counts[1] == 0, f'{label}: launches')
+            launches['ldl_solve'] = counts[2]
+    ldl_share(esolver, etheta, card)
+
+    # one entropy instance through generate_code(solver='CLARABEL')
+    code_dir = os.path.join(ROOT, 'build', 'chip_smoke', 'entropy_code')
+    cpg.generate_code(eprob, code_dir=code_dir, solver='CLARABEL', device=dev)
+    lk.ldl_factor_kernel.launches = 0
+    t0 = time.perf_counter()
+    val = eprob.solve(method='CPG')
+    t_cpg = time.perf_counter() - t0
+    rel = abs(val - lse[0]) / max(1.0, abs(lse[0]))
+    print(f'# phase 11: entropy solve(method=CPG), solver CLARABEL: '
+          f'{eprob.status}, objective {val:.6f} vs logsumexp(c) {lse[0]:.6f} '
+          f'(rel {rel:.2e}), {eprob.solver_stats.num_iters} iters, '
+          f'{1e3 * t_cpg:.1f} ms first call, K6 launches '
+          f'{lk.ldl_factor_kernel.launches} [{card}]')
+    check(eprob.status == 'optimal', f'entropy CPG status {eprob.status}')
+    check(rel <= PARITY_BAR, f'entropy CPG objective rel {rel:.3e}')
+    check(lk.ldl_factor_kernel.launches > 0, 'entropy CPG: K6 not launched')
+
+    # the ADP SOCP family through the default generate_code route (IPM)
+    aprob = assign_adp(adp_problem(ct))
+    code_dir = os.path.join(ROOT, 'build', 'chip_smoke', 'adp_code')
+    mod = cpg.generate_code(aprob, code_dir=code_dir, device=dev)
+    asolver = mod._runtime.solver
+    check(asolver.solver_name == 'IPM', f'ADP routes to '
+          f'{asolver.solver_name}')
+    val = aprob.solve(method='CPG')
+    check(aprob.status == 'optimal', f'ADP CPG status {aprob.status}')
+    afam = asolver.family
+    atheta = adp_batch(afam, aprob, B_ADP)
+    ast = IPMSettings.for_dtype(torch.float32, **ADP_SETTINGS)
+    out = asolver.solve_batch(atheta, settings=ast)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        out = asolver.solve_batch(atheta, settings=ast)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 3
+    arefs = oracle_objs(afam, atheta, N_ORACLE_ADP)
+    gate_conic(f'ADP SOCP (generate_code default: IPM, schur mode; CPG '
+               f'{val:.6f})', out, arefs, dt, 'none (no kernel)', card)
+    # the same batch through the two-level 'ldl' route: K6 and K7 on the
+    # saddle block [[P, -E'], [-E, -reg I]] once, then on the Schur
+    # complement S = H + C' Ktop^-1 C (signs all +1) every iteration.  (On
+    # the entropy family in float32 this route stalls in the plain version
+    # too: with P = 0 the saddle block's primal pivots are static_reg.)
+    tst = dataclasses.replace(ast, kkt_solver='ldl', ldl_two_level=True)
+    for kern in (lk.ldl_factor_kernel, lk.ldl_inverse_kernel,
+                 lk.ldl_solve_kernel):
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = asolver.solve_batch(atheta, settings=tst)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = (lk.ldl_factor_kernel.launches, lk.ldl_inverse_kernel.launches,
+              lk.ldl_solve_kernel.launches)
+    gate_conic('ADP SOCP through the two-level ldl route (one call)', out,
+               arefs, dt, f'K6 {counts[0]}, K7 {counts[1]}, K8 {counts[2]}',
+               card)
+    check(counts[1] == counts[0] > 1 and counts[2] == 0,
+          f'two-level launches {counts}')
+    return numbers, launches
+
+
+def adp_problem(ct, n=6, m=3):
+    """The ADP family of tests/problems.py:190-204 (reference
+    tests/test_E2E_SOCP.py:14-35) in the port's modeling layer."""
+    u = ct.Variable((2, m), name='u')
+    Rsqrt = ct.Parameter((m, m), name='Rsqrt', diag=True)
+    f = ct.Parameter(n, name='f')
+    G = ct.Parameter((n, m), name='G')
+    objective = ct.Minimize(ct.sum_squares(f + G @ u[0])
+                            + ct.sum_squares(Rsqrt @ u[0]))
+    return ct.Problem(objective, [ct.norm(u, 2, axis=1) <= 0.1])
+
+
+def assign_adp(prob, seed=0):
+    """tests/problems.py:207-224."""
+    np.random.seed(seed)
+    state = -2 * np.ones(6) + 4 * np.random.rand(6)
+    A_cont = np.array([[0, 0, 0, 1, 0, 0],
+                       [0, 0, 0, 0, 1, 0],
+                       [0, 0, 0, 0, 0, 1],
+                       [0, 0, 0, -state[3], 0, 0],
+                       [0, 0, 0, 0, -state[4], 0],
+                       [0, 0, 0, 0, 0, -state[5]]])
+    B_cont = np.concatenate((np.zeros((3, 3)), np.diag(state[3:])), axis=0)
+    td = 0.1
+    A, B = np.eye(6) + td * A_cont, td * B_cont
+    prob.param_dict['Rsqrt'].value = np.sqrt(0.1) * np.eye(3)
+    prob.param_dict['f'].value = A @ state
+    prob.param_dict['G'].value = B
+    return prob
+
+
+def adp_batch(fam, prob, B):
+    """bench.py:355-361: f scaled by U(0.5, 1.5) per entry."""
+    base = fam.pack_theta(params=prob.parameters())
+    fi = [pi for pi in fam.param_info if pi.name == 'f'][0]
+    theta = np.tile(base, (B, 1))
+    theta[:, fi.offset:fi.offset + fi.flat_size] *= np.random.default_rng(
+        1).uniform(0.5, 1.5, (B, fi.flat_size))
+    return theta
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke.py: no CUDA device')
@@ -1523,6 +2085,7 @@ def main():
     k2_launches, k3_launches = phase_per_instance(fam, prob, refs, card,
                                                   portfolio)
     k4_numbers, k4_launches, k5_numbers, k5_launches = phase_banded(card)
+    ldl_numbers, ldl_launches = phase_conic(card)
     kernels = [
         dict(name='admm_shared_solve', route='cuda',
              source='cvxpygen_tpu_torch/csrc/admm_shared.cu',
@@ -1544,6 +2107,14 @@ def main():
              source='cvxpygen_tpu_torch/csrc/banded_chunk.cu',
              replaces='cvxpygen_tpu/ops/banded_shared_kernel.py:173',
              launches=k5_launches, **k5_numbers)]
+    for name, src, line in (('ldl_factor', 'ldl_factor.cu', 77),
+                            ('ldl_inverse', 'ldl_inverse.cu', 237),
+                            ('ldl_solve', 'ldl_solve.cu', 106)):
+        kernels.append(dict(
+            name=name, route='cuda',
+            source=f'cvxpygen_tpu_torch/csrc/{src}',
+            replaces=f'cvxpygen_tpu/ops/ldl_kernel.py:{line}',
+            launches=ldl_launches[name], **ldl_numbers[name]))
     print(f'# chip_smoke.py: all phases {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(card)

@@ -1,16 +1,18 @@
-"""Runtime object behind generated solver packages (ADMM engine).
+"""Runtime object behind generated solver packages (ADMM and IPM engines).
 
 Port of the JAX package's ``codegen/runtime.py`` ``CpgRuntime``: it plays
 the role of the reference's compiled pybind module + python wrapper
 (reference templates/cpg_solver.py.jinja2:38-213).  It holds the compiled
 family, caches theta between calls honouring ``updated_params``, resolves
 runtime settings through the registry, and warm-starts from the previous
-solution.  Gradients (``gradient=True``) and the explicit runtime arrive
-with later slices of the port.
+solution where the engine takes one (the ADMM engine; as in the
+reference, the IPM is not warm-started).  Gradients (``gradient=True``) and
+the explicit runtime arrive with later slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
 import warnings
 
@@ -75,8 +77,11 @@ class CpgRuntime:
         self.requested_solver = solver_name
         self._theta = None
         self._ctx = None
-        # warm-start state persisted across cpg_solve calls (parity:
-        # reference OSQP warm_starting default-ON, osqp.py:102-115)
+        # warm-start state persisted across cpg_solve calls, for engines
+        # whose solve_batch takes one (parity: reference OSQP
+        # warm_starting default-ON, osqp.py:102-115)
+        self._supports_warm = 'x0' in inspect.signature(
+            self.solver.solve_batch).parameters
         self._warm = None
 
     # -- settings -------------------------------------------------------
@@ -123,12 +128,14 @@ class CpgRuntime:
         theta = self._pack(prob, updated_params)
         t0 = time.perf_counter()
         warm = {}
-        if self._warm is not None and st.warm_starting:
+        if self._supports_warm and self._warm is not None \
+                and st.warm_starting:
             warm = dict(x0=self._warm[0], y0=self._warm[1])
         out = self.solver.solve_batch(theta[None, :], settings=st, **warm)
         out = {k: v.cpu().numpy() for k, v in out.items()}
         solve_time = time.perf_counter() - t0
-        self._warm = (out['x'], out['y'])
+        if self._supports_warm:
+            self._warm = (out['x'], out['y'])
         fam = self.family
         obj = float(out['obj'][0] + out['d'][0])
         if fam.is_maximization:
@@ -144,8 +151,10 @@ class CpgRuntime:
         stats = SolverStats(
             solver_name=self.requested_solver, solve_time=solve_time,
             num_iters=int(out['iters'][0]),
-            extra=dict(pri_res=float(out['pri_res'][0]),
-                       dua_res=float(out['dua_res'][0])))
+            extra=dict(pri_res=float(out.get('pri_res',
+                                             out.get('res_primal'))[0]),
+                       dua_res=float(out.get('dua_res',
+                                             out.get('res_dual'))[0])))
         self._ctx = dict(out=out, theta=theta.copy())
         if verbose:
             print(f'CVXPYgen-torch {self.requested_solver}: '

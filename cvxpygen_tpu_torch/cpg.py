@@ -10,11 +10,12 @@ compiler.py:33-40).
 
 The artifact is the pickled Family (the parametric canonicalization maps --
 the reference's cpg_workspace.c as arrays); the torch solve path is built
-when the package is imported.  This slice of the port generates ADMM
-packages for QP-form families (dense, or block-banded with
-``solver='BANDED'``, which ADMM also picks for banded families with
-n >= 512); the embedded-C artifact, the explicit solver and the conic
-engines arrive with later slices (ROADMAP.md).
+when the package is imported.  The port generates ADMM packages for
+QP-form families (dense, or block-banded with ``solver='BANDED'``, which
+ADMM also picks for banded families with n >= 512) and interior-point
+packages (``'IPM'`` and the reference's ECOS/CLARABEL/QOCO aliases) for any
+family; the embedded-C artifact, the explicit solver, the conic ADMM
+engine (SCS) and gradients arrive with later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,8 +27,20 @@ import pickle
 import sys
 
 from .canon.canonicalizer import canonicalize
+from .runtime.solver import IPM_SOLVERS
 
 _QP_SOLVERS = ('ADMM', 'OSQP', 'BANDED', 'ADMM_BANDED')
+
+
+def default_solver(fam):
+    """The reference's default engine for a canonicalized family
+    (cvxpygen_tpu/cpg.py:48-55): exp/PSD/pow cones -> SCS (the conic ADMM),
+    SOC-only -> IPM, QP-form -> ADMM."""
+    if fam.n_exp or fam.psd_dims or fam.pow_alphas:
+        return 'SCS'
+    if fam.soc_dims:
+        return 'IPM'
+    return 'ADMM'
 
 
 def generate_code(problem, code_dir='cpg_code', solver=None, solver_opts=None,
@@ -43,16 +56,16 @@ def generate_code(problem, code_dir='cpg_code', solver=None, solver_opts=None,
     has_cones = bool(fam.soc_dims or fam.n_exp or fam.psd_dims
                      or fam.pow_alphas)
     if solver is None:
-        solver = 'SCS' if has_cones else 'ADMM'
+        solver = default_solver(fam)
     if solver.lower() == 'explicit':
         raise NotImplementedError('the explicit solver is not ported yet: '
                                   'ROADMAP.md queue 1 item 10')
-    if solver.upper() not in _QP_SOLVERS:
-        raise NotImplementedError(
-            f'solver {solver!r} is not ported yet (this slice of the port '
-            'generates ADMM packages for QP-form families): ROADMAP.md '
-            'queue 1 items 8-9')
-    if has_cones:
+    if solver.upper() in ('SCS', 'CONIC_ADMM'):
+        raise NotImplementedError('the conic ADMM engine (SCS) is not '
+                                  'ported yet: ROADMAP.md queue 1 item 8')
+    if solver.upper() not in _QP_SOLVERS + IPM_SOLVERS:
+        raise ValueError(f'unsupported solver {solver!r}')
+    if has_cones and solver.upper() in _QP_SOLVERS:
         raise ValueError(f'{solver}: QP-form solver but family has cones')
     if gradient:
         raise NotImplementedError(

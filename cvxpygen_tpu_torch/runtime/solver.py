@@ -1,21 +1,28 @@
 """Compiled solvers: batched solve functions per problem family, in torch.
 
-Port of the QP branch of the JAX package's ``runtime/solver.py``: the
-online path canonicalize -> solve -> retrieve over a parameter batch,
-through the shared-KKT branch (every batch row shares the canonical P and A)
-or the per-instance branch, on dense storage (``CompiledQPSolver``) or, for
-long-horizon families, on block-banded storage
-(``CompiledBandedQPSolver``).  The other engines raise
-``NotImplementedError`` naming the ROADMAP.md queue-1 item that ports them.
+Port of the JAX package's ``runtime/solver.py``: the online path
+canonicalize -> solve -> retrieve over a parameter batch.  QP-form
+families run the ADMM engine, through the shared-KKT branch (every batch
+row shares the canonical P and A) or the per-instance branch, on dense
+storage (``CompiledQPSolver``) or, for long-horizon families, on
+block-banded storage (``CompiledBandedQPSolver``); conic families run the
+interior-point engine (``CompiledConicSolver``).  The conic ADMM engine
+(SCS) raises ``NotImplementedError`` naming the ROADMAP.md queue-1 item
+that ports it.
 """
 from __future__ import annotations
+
+import dataclasses
+import time
 
 import numpy as np
 import torch
 
-from ..canon.canonicalizer import Family
+from ..canon.canonicalizer import Family, retrieve_duals, retrieve_primal
+from ..problem import SolverStats
 from ..solvers.admm import ADMMSettings, admm_solve
 from ..solvers.admm_shared import admm_solve_shared
+from ..solvers.ipm import IPMSettings, ipm_solve
 from .torch_family import (TorchFamily, canon_batch, canon_batch_shared,
                            canon_batch_sparse, qp_bounds_batch,
                            resolve_device)
@@ -72,8 +79,8 @@ class CompiledQPSolver:
     def __init__(self, family: Family, settings: ADMMSettings = None,
                  dtype=None, device=None):
         if family.soc_dims:
-            raise ValueError('family has SOC cones: a conic engine solves it '
-                             '(ROADMAP.md queue 1 items 8-9)')
+            raise ValueError('family has SOC cones: use a conic solver '
+                             '(IPM/ECOS/CLARABEL)')
         self.family = family
         self.settings = settings or ADMMSettings()
         self.device = resolve_device(device)
@@ -138,8 +145,8 @@ class CompiledBandedQPSolver:
         if family.soc_dims or getattr(family, 'n_exp', 0) \
                 or getattr(family, 'psd_dims', ()) \
                 or getattr(family, 'pow_alphas', ()):
-            raise ValueError('family has cones: a conic engine solves it '
-                             '(ROADMAP.md queue 1 items 8-9)')
+            raise ValueError('family has cones: use a conic solver '
+                             '(IPM/ECOS/CLARABEL)')
         self.family = family
         self.settings = settings or ADMMSettings()
         self.device = resolve_device(device)
@@ -184,12 +191,87 @@ class CompiledBandedQPSolver:
         return use_shared_path(self._pa_mask, theta, shared_PA)
 
 
+class CompiledConicSolver:
+    """IPM-backed compiled family solver (Clarabel/ECOS/QOCO role).
+
+    The canonical rows are aff = A x + b with cone membership; the IPM form
+    E x + f = 0, G x + h = s in K is exactly (A, b) split by group, with no
+    sign flip.  Canonical dual convention: y_canon = [nu; z].  Runs on CUDA
+    unless ``device`` says otherwise; default dtype float32 on CUDA, float64
+    on the CPU.  With no settings given, float32 takes
+    ``IPMSettings.for_dtype``, and exp/pow families loosen to 1e-3 (their
+    barrier Hessians scale like 1/mu^2 and carry no float32 precision near
+    mu ~ 1e-5)."""
+
+    solver_name = 'IPM'
+
+    def __init__(self, family: Family, settings=None, dtype=None,
+                 device=None):
+        self.family = family
+        self.device = resolve_device(device)
+        self.jf = TorchFamily.from_family(family, dtype=dtype,
+                                          device=self.device)
+        if settings is None:
+            dt = self.jf.maps.dtype
+            overrides = {}
+            if dt == torch.float32 and (family.n_exp or family.pow_alphas):
+                overrides = dict(tol_feas=1e-3, tol_gap=1e-3)
+            settings = IPMSettings.for_dtype(dt, **overrides)
+        self.settings = settings
+        # linear-objective family: enables the HSDE infeasibility post-pass
+        # for exotic layouts (solvers/ipm.py::ipm_solve)
+        P_map = family.P_map
+        self.P_is_zero = bool(P_map is None or P_map.nnz == 0)
+
+    def solve_batch(self, theta, settings=None):
+        """Batched solve of theta (B, p): dict of batched tensors with x,
+        nu, z, s, obj, iters, status, solved, d and y_canon."""
+        jf = self.jf
+        data = canon_batch(jf, theta)
+        A, b = data['A'], data['b']
+        mz = jf.n_zero
+        res = ipm_solve(data['P'], data['q'], A[:, :mz], b[:, :mz],
+                        A[:, mz:], b[:, mz:], jf.n_nonneg, jf.soc_dims,
+                        settings or self.settings, n_exp=jf.n_exp,
+                        psd_dims=jf.psd_dims, pow_alphas=jf.pow_alphas,
+                        P_is_zero=self.P_is_zero)
+        res['d'] = data['d']
+        res['y_canon'] = torch.cat([res['nu'], res['z']], dim=1)
+        return res
+
+    def solve_into_problem(self, problem, **setting_overrides):
+        """Solve one instance from the problem's parameter values and write
+        the result into the problem (the cpg_solve role)."""
+        fam = self.family
+        theta = fam.pack_theta(params=problem.parameters())
+        st = self.settings
+        if setting_overrides:
+            st = dataclasses.replace(st, **setting_overrides)
+        t0 = time.perf_counter()
+        out = self.solve_batch(theta[None, :], settings=st)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        solve_time = time.perf_counter() - t0
+        obj = float(out['obj'][0] + out['d'][0])
+        if fam.is_maximization:
+            obj = -obj
+        stats = SolverStats(solver_name=self.solver_name,
+                            solve_time=solve_time,
+                            num_iters=int(out['iters'][0]))
+        return problem.unpack_results(
+            _status_str(out), obj, retrieve_primal(fam, out['x'][0]),
+            retrieve_duals(fam, out['y_canon'][0]), stats)
+
+
+IPM_SOLVERS = ('IPM', 'ECOS', 'CLARABEL', 'QOCO', 'QOCOGEN')
+
+
 def make_compiled_solver(family: Family, solver='ADMM', settings=None,
                          dtype=None, device=None):
-    """Resolve a solver name to a compiled solver (ADMM / OSQP, and
-    BANDED / ADMM_BANDED for the block-banded engine, in this slice of the
-    port).  ADMM on a family with n >= 512 takes the banded solver when
-    the KKT pattern is banded, and the dense one otherwise."""
+    """Resolve a solver name to a compiled solver: ADMM / OSQP, BANDED /
+    ADMM_BANDED for the block-banded engine, and IPM / ECOS / CLARABEL /
+    QOCO / QOCOGEN for the interior-point engine (which covers the full
+    Clarabel cone list).  ADMM on a family with n >= 512 takes the banded
+    solver when the KKT pattern is banded, and the dense one otherwise."""
     name = (solver or 'ADMM').upper()
     has_cones = bool(family.soc_dims or getattr(family, 'n_exp', 0)
                      or getattr(family, 'psd_dims', ())
@@ -215,7 +297,7 @@ def make_compiled_solver(family: Family, solver='ADMM', settings=None,
     if name in ('SCS', 'CONIC_ADMM'):
         raise NotImplementedError('conic ADMM is not ported yet: ROADMAP.md '
                                   'queue 1 item 8')
-    if name in ('IPM', 'ECOS', 'CLARABEL', 'QOCO', 'QOCOGEN'):
-        raise NotImplementedError('the conic IPM is not ported yet: '
-                                  'ROADMAP.md queue 1 item 9')
+    if name in IPM_SOLVERS:
+        return CompiledConicSolver(family, settings=settings, dtype=dtype,
+                                   device=device)
     raise ValueError(f'unknown solver {solver!r}')

@@ -4,8 +4,9 @@ plumbing).
 The reference declares, per solver, a registry of ``Setting(type, default,
 enabled, name_cvxpy)`` (reference cvxpygen/mappings.py:140-145; osqp.py:
 102-115), warns on unknown settings (_interface.py:125-130) and translates
-CVXPY-style names (_interface.py:197-199).  This slice of the port carries
-the ADMM engine; the conic and explicit engines arrive with their solvers.
+CVXPY-style names (_interface.py:197-199).  The port carries the ADMM engine (with its
+banded variant) and the interior-point engine; the conic ADMM and explicit
+engines arrive with their solvers.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from dataclasses import dataclass, fields
 from typing import Any, Dict, Optional
 
 from .admm import ADMMSettings
+from .ipm import IPMSettings
 
 
 @dataclass
@@ -36,12 +38,32 @@ def _registry_from_dataclass(cls, cvxpy_names=None):
 
 ADMM_SETTINGS: Dict[str, Setting] = _registry_from_dataclass(
     ADMMSettings, cvxpy_names={'warm_starting': 'warm_start'})
+IPM_SETTINGS: Dict[str, Setting] = _registry_from_dataclass(IPMSettings)
 # gated behind generate_code(..., enable_settings=['verbose'])
-ADMM_SETTINGS['verbose'] = Setting('bool', False, enabled=False)
+for _reg in (ADMM_SETTINGS, IPM_SETTINGS):
+    _reg['verbose'] = Setting('bool', False, enabled=False)
 
 # reference/CVXPY-style names -> engine setting names
 ADMM_ALIASES: Dict[str, str] = {
     'warm_start': 'warm_starting',
+}
+# the reference solver surfaces: ECOS feastol/abstol/reltol/maxit, Clarabel
+# tol_*/equilibrate_*/iterative_refinement_* (clarabel.py:63-119), QOCO
+IPM_ALIASES: Dict[str, str] = {
+    'maxit': 'max_iter', 'feastol': 'tol_feas',
+    'abstol': 'tol_gap', 'reltol': 'tol_gap',
+    'tol_gap_abs': 'tol_gap', 'tol_gap_rel': 'tol_gap',
+    'tol_infeas_abs': 'tol_infeas', 'tol_infeas_rel': 'tol_infeas',
+    'tol_feas_abs': 'tol_feas', 'tol_feas_rel': 'tol_feas',
+    'equilibrate_max_iter': 'scaling',
+    'iterative_refinement_max_iter': 'refine_steps',
+    'max_step_fraction': 'frac_to_boundary',
+    'abstol_inacc': 'tol_gap', 'reltol_inacc': 'tol_gap',
+}
+
+_ENGINES = {
+    'ADMM': (ADMM_SETTINGS, ADMM_ALIASES),
+    'IPM': (IPM_SETTINGS, IPM_ALIASES),
 }
 
 
@@ -49,6 +71,6 @@ def engine_registry(engine):
     """(settings registry, aliases) of a compiled solver's engine name; the
     banded engine ``ADMM_BANDED`` runs the ADMM settings."""
     engine = 'ADMM' if engine == 'ADMM_BANDED' else engine
-    if engine != 'ADMM':
+    if engine not in _ENGINES:
         raise ValueError(f'no settings registry for engine {engine!r}')
-    return ADMM_SETTINGS, ADMM_ALIASES
+    return _ENGINES[engine]

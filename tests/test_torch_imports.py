@@ -55,7 +55,14 @@ def test_import_leaves_jax_unloaded():
             'cvxpygen_tpu_torch.ops.banded_grouped, '
             'cvxpygen_tpu_torch.ops.banded_shared_kernel, '
             'cvxpygen_tpu_torch.solvers.admm_banded, '
-            'cvxpygen_tpu_torch.solvers.admm_banded_shared; '
+            'cvxpygen_tpu_torch.solvers.admm_banded_shared, '
+            'cvxpygen_tpu_torch.ops.ldl_batched, '
+            'cvxpygen_tpu_torch.ops.ldl_kernel, '
+            'cvxpygen_tpu_torch.solvers.ipm, '
+            'cvxpygen_tpu_torch.solvers.ipm_cones, '
+            'cvxpygen_tpu_torch.solvers.ipm_hsde, '
+            'cvxpygen_tpu_torch.solvers.registry, '
+            'cvxpygen_tpu_torch.codegen.runtime; '
             'print(sorted(m for m in sys.modules if m == "cvxpygen_tpu" '
             'or m.startswith("cvxpygen_tpu.") or m.split(".")[0] == "jax"))')
     env = dict(os.environ, PYTHONPATH=_ROOT)

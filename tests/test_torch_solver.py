@@ -202,21 +202,29 @@ def test_device_unset_without_cuda_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CompiledQPSolver(canonicalize(port))
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_compiled_solver(canonicalize(port), 'CLARABEL')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         cpg.generate_code(port, code_dir=str(tmp_path / 'p'), solver='ADMM')
 
 
 def test_unported_engines_raise(tmp_path):
-    """The engines this slice does not port raise NotImplementedError
-    naming their ROADMAP item; the long-horizon MPC family, which raised
-    before the banded solver was ported, now routes to it."""
+    """The engines the port does not have yet raise NotImplementedError
+    naming their ROADMAP item (the conic ADMM, the explicit solver,
+    gradients); the IPM aliases, which raised before the interior-point
+    engine was ported, and the long-horizon MPC family, which raised before
+    the banded solver was ported, now route to their solvers."""
     pt = _problems_torch()
     _, port = _mpc_pair()
     fam = canonicalize(port)
-    for solver in ('SCS', 'IPM'):
+    for solver in ('SCS', 'CONIC_ADMM'):
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
             make_compiled_solver(fam, solver, device='cpu')
-    for kw in (dict(solver='explicit'), dict(solver='ECOS'),
-               dict(solver='ADMM', gradient=True)):
+    for solver in ('IPM', 'ECOS', 'CLARABEL', 'QOCO', 'QOCOGEN'):
+        assert make_compiled_solver(fam, solver,
+                                    device='cpu').solver_name == 'IPM'
+    for kw in (dict(solver='explicit'), dict(solver='SCS'),
+               dict(solver='ADMM', gradient=True),
+               dict(solver='ECOS', gradient=True)):
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
             cpg.generate_code(port, code_dir=str(tmp_path / 'p'),
                               device='cpu', **kw)
@@ -224,3 +232,61 @@ def test_unported_engines_raise(tmp_path):
     assert long_mpc.n >= 512
     assert make_compiled_solver(long_mpc, 'ADMM',
                                 device='cpu').solver_name == 'ADMM_BANDED'
+
+
+def _entropy(pkg, n=3):
+    x = pkg.Variable(n, name='x')
+    c = pkg.Parameter(n, name='c')
+    c.value = np.arange(n, dtype=float)
+    return pkg.Problem(pkg.Maximize(c @ x + pkg.sum(pkg.entr(x))),
+                       [pkg.sum(x) == 1.0])
+
+
+def _sdp(pkg):
+    X = pkg.Variable((2, 2), name='X', PSD=True)
+    C = pkg.Parameter((2, 2), name='C')
+    C.value = np.eye(2)
+    return pkg.Problem(pkg.Minimize(pkg.trace(C @ X)),
+                       [pkg.trace(X) == 1.0])
+
+
+def _pow(pkg):
+    x = pkg.Variable(name='x')
+    y = pkg.Variable(name='y')
+    z = pkg.Variable(name='z')
+    p = pkg.Parameter(name='p')
+    p.value = 1.0
+    return pkg.Problem(pkg.Maximize(z), [pkg.PowCone3D(x, y, z, 0.5),
+                                         x == p, y == p])
+
+
+@pytest.mark.parametrize('family', ['MPC', 'ADP', 'entropy', 'sdp', 'pow'])
+def test_default_solver_matches_reference(family, tmp_path):
+    """generate_code's default engine follows the reference's rule
+    (cvxpygen_tpu/cpg.py:48-55): QP-form -> ADMM, SOC-only -> IPM,
+    exp/PSD/pow -> SCS, which still raises naming its ROADMAP item."""
+    import cvxpygen_tpu as ct_ref
+    from cvxpygen_tpu_torch.cpg import default_solver
+    pt = _problems_torch()
+    pair = {
+        'MPC': lambda: _mpc_pair(),
+        'ADP': lambda: (problems_ref.assign_ADP(problems_ref.ADP_problem()),
+                        pt.assign_ADP(pt.ADP_problem())),
+        'entropy': lambda: (_entropy(ct_ref), _entropy(cvxpygen_tpu_torch)),
+        'sdp': lambda: (_sdp(ct_ref), _sdp(cvxpygen_tpu_torch)),
+        'pow': lambda: (_pow(ct_ref), _pow(cvxpygen_tpu_torch)),
+    }[family]
+    ref, port = pair()
+    want = {'MPC': 'ADMM', 'ADP': 'IPM'}.get(family, 'SCS')
+    ref_dir = tmp_path / 'ref'
+    cpg_ref.generate_code(ref, code_dir=str(ref_dir), wrapper=False)
+    assert f'"solver": "{want}"' in (ref_dir / 'cpg_solver.py').read_text()
+    assert default_solver(canonicalize(port)) == want
+    if want == 'SCS':
+        with pytest.raises(NotImplementedError, match='item 8'):
+            cpg.generate_code(port, code_dir=str(tmp_path / 'p'),
+                              device='cpu')
+    else:
+        mod = cpg.generate_code(port, code_dir=str(tmp_path / 'p'),
+                                device='cpu')
+        assert mod._runtime.requested_solver == want
