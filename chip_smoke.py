@@ -9,8 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. build kernels K1 (csrc/admm_shared.cu), K2 (csrc/admm_full.cu), K3
    (csrc/admm_iterate.cu), K4 (csrc/cr_solve.cu), K5
    (csrc/banded_chunk.cu), K6 (csrc/ldl_factor.cu), K7
-   (csrc/ldl_inverse.cu) and K8 (csrc/ldl_solve.cu), one nvcc for sm_90a
-   each, all started together, and identify the card;
+   (csrc/ldl_inverse.cu), K8 (csrc/ldl_solve.cu), K9
+   (csrc/ldl_factor_inverse.cu), K10 (csrc/ldl_kinv.cu) and K11
+   (csrc/banded_iterate.cu), one nvcc for sm_90a each, all started
+   together, and identify the card;
 2. K1 against its plain torch version on the card, on the scaled MPC data
    (n=222, m=252) that the shared main path hands it, at B=256 and at the
    main path's B=2048, float32, adaptive rho on, the same chunk for both:
@@ -97,8 +99,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    B=1024, within 1e-2 of the float64 oracle on 16 instances, and the same
    batch through kkt_solver='ldl' with ldl_two_level=True (K6 + K7 on the
    saddle block once and on the Schur complement each iteration);
-12. a JSON line with each kernel's launches, error, times and bound;
-13. the card's name and power limit (nvidia-smi), then the result line.
+12. K9 (csrc/ldl_factor_inverse.cu) and K10 (csrc/ldl_kinv.cu), the fused
+   factor + inverse, on phase 10's first-iteration K: each within twice its
+   float32 plain version's distance from the float64 inverse of the
+   pivot-regularized K (plus LDL_APPLY_FLOOR), by both measures, beside K6 +
+   K7; on a well-conditioned K (N=24) within FUSED_WELL_TOL of the float64
+   inverse; times beside K6 + K7, the plain versions, torch.linalg.inv(K)
+   and the bound; then the entropy batch of phase 11 under
+   CPG_LDL_FUSED=1 (K9) and under CPG_LDL_BM_FUSED=1 (K10), and the ADP
+   batch through the two-level route under CPG_LDL_FUSED=1 (K9 on both
+   levels): every instance solved within the parity bar, the fused kernel
+   launched about once per iteration and K6, K7, K8 never (the variables
+   are set and restored inside the phase);
+13. K11 (csrc/banded_iterate.cu) on charging T=1440, B=256 (phase 9's batch
+   and settings; the shared engine's set-up through the port's own
+   functions): from the state that 100 iterations of the K4 route reach,
+   50 iterations (one check interval) at kkt_refine 0 and 1 on the
+   rho-scaled state, x, z, y within K11_TOL * max(1, |v|_inf) of its plain
+   version and of the K4 route at the same fixed rho; K11's time, its plain
+   version's, the K4 route's over the same 50 iterations and the bound;
+   whether K4, K11 and the float32 set-up give bitwise equal results
+   twice, and two eps-1e-4 solves' mean iterations;
+14. a JSON line with each kernel's launches, error, times and bound;
+15. the card's name and power limit (nvidia-smi), then the result line.
 
 ``python3 chip_smoke.py --block-sweep`` instead builds the kernels and runs
 K2 on the portfolio and MPC general batches at several blocks, printing
@@ -107,6 +130,8 @@ instances solved, mean iterations and time per block.
 It needs a CUDA device and the repository beside it: without either it
 exits non-zero and prints no result.
 """
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -291,7 +316,7 @@ def k1_bound(n, m, B, iters, refactors, st):
 
 
 def phase_build():
-    """Build K1-K8 at once: one nvcc per source, in parallel."""
+    """Build K1-K11 at once: one nvcc per source, in parallel."""
     from cvxpygen_tpu_torch.ops import admm_full_kernel as k2
     from cvxpygen_tpu_torch.ops import admm_kernel as k3
     from cvxpygen_tpu_torch.ops import admm_shared_kernel as k1
@@ -305,7 +330,10 @@ def phase_build():
             ('banded_chunk.cu', k45.build_chunk_kernel),
             ('ldl_factor.cu', k678.build_factor_kernel),
             ('ldl_inverse.cu', k678.build_inverse_kernel),
-            ('ldl_solve.cu', k678.build_solve_kernel))
+            ('ldl_solve.cu', k678.build_solve_kernel),
+            ('ldl_factor_inverse.cu', k678.build_factor_inverse_kernel),
+            ('ldl_kinv.cu', k678.build_kinv_kernel),
+            ('banded_iterate.cu', k45.build_iterate_kernel))
     with ThreadPoolExecutor(len(srcs)) as ex:
         futs = [(src, ex.submit(build, True)) for src, build in srcs]
         for src, fut in futs:
@@ -1140,7 +1168,6 @@ def mid_solve_k4_call(solver, theta, settings, call):
     """(factor, meta, rhs) of K4's call number ``call`` in a solve of this
     batch: a right-hand side from the middle of a solve, with the factor
     of that moment."""
-    import dataclasses
     from cvxpygen_tpu_torch.solvers import admm_banded_shared as engine
     real = engine.cr_solve
     seen = []
@@ -1421,7 +1448,6 @@ def gate_banded(name, out, refs, dt, launches, first_iters, card,
 def phase_banded(card, dev='cuda'):
     """Phases 7-9: K4 and K5 against their plain versions, then the banded
     main path at full width.  Returns the kernels' numbers and launches."""
-    import dataclasses
     import cvxpygen_tpu_torch as ct
     from cvxpygen_tpu_torch import cpg
     from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
@@ -1777,8 +1803,12 @@ def time_ldl(K, signs, dd, card):
     k8 = (cuda_ms(lambda: lk.ldl_solve_kernel(fac, b), 20)[0],
           cuda_ms(lambda: lk.ldl_solve_plain(ref, b), 2)[0])
     # library yardsticks (timed here, used nowhere in the port): the
-    # pivoted LDL of the same K, the inverse from K, the pivoted solve
+    # pivoted LDL of the same K, the inverse from K, the pivoted solve;
+    # each called once before its timing, since its first call sets up
+    # the library's handles and workspace
     LD, piv = torch.linalg.ldl_factor(K)
+    torch.linalg.inv(K)
+    torch.linalg.ldl_solve(LD, piv, b[..., None])
     lib = (cuda_ms(lambda: torch.linalg.ldl_factor(K), 2)[0],
            cuda_ms(lambda: torch.linalg.inv(K), 3)[0],
            cuda_ms(lambda: torch.linalg.ldl_solve(LD, piv, b[..., None]),
@@ -1837,7 +1867,8 @@ def ldl_share(solver, theta, card):
           f'cone scalings, line searches, checks and host) [{card}]')
 
 
-def gate_conic(name, out, refs, dt, launches, card, maximize=False):
+def gate_conic(name, out, refs, dt, launches, card, maximize=False,
+               phase='phase 11'):
     """Every instance solved, finite, within the parity bar of its
     reference; prints solves/s, mean iterations and the launches."""
     B = out['status'].shape[0]
@@ -1847,7 +1878,7 @@ def gate_conic(name, out, refs, dt, launches, card, maximize=False):
         obj = -obj
     max_rel, n_bad = parity(obj, refs)
     iters = out['iters'].float()
-    print(f'# phase 11: {name}, B={B}: frac_solved {frac}, mean iters '
+    print(f'# {phase}: {name}, B={B}: frac_solved {frac}, mean iters '
           f'{float(iters.mean()):.2f} (max {int(iters.max())}), '
           f'{B / dt:.1f} solves/s, {1e3 * dt:.3f} ms per batch, launches '
           f'{launches}; parity on {len(refs)}: max rel {max_rel:.3e} '
@@ -1860,10 +1891,10 @@ def gate_conic(name, out, refs, dt, launches, card, maximize=False):
 
 
 def phase_conic(card, dev='cuda'):
-    """Phases 10-11: K6-K8 against their plain versions on the entropy
-    family's KKT matrices, then the conic IPM main path at full width.
-    Returns the kernels' numbers and launches."""
-    import dataclasses
+    """Phases 10-12: K6-K8 against their plain versions on the entropy
+    family's KKT matrices, the conic IPM main path at full width, then the
+    fused routes (phase_fused).  Returns K6-K8's numbers and launches, then
+    K9's and K10's."""
     import cvxpygen_tpu_torch as ct
     from cvxpygen_tpu_torch import cpg
     from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
@@ -2018,7 +2049,389 @@ def phase_conic(card, dev='cuda'):
                card)
     check(counts[1] == counts[0] > 1 and counts[2] == 0,
           f'two-level launches {counts}')
+    fused_numbers, fused_launches = phase_fused(
+        card, K0, s0, dd, esolver, etheta, est, lse, asolver, atheta, tst,
+        arefs)
+    return numbers, launches, fused_numbers, fused_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the fused LDL factor + inverse routes (kernels K9 and K10)
+# ---------------------------------------------------------------------------
+
+# a well-conditioned K (tests/test_ldl.py's construction, n=10, mc=14:
+# N=24) held to its float64 inverse at this bar, relative to max(1, |v|)
+FUSED_WELL_TOL = 1e-5
+B_FUSED_WELL = 64
+
+
+def fused_bound(B, N):
+    """The function's least work for K9 and K10 (the same function): the
+    lower triangle of the symmetric K in, Kinv (B, N, N) out; N^3 FLOP per
+    instance (N^3 / 3 for the LDL^T, 2 N^3 / 3 for the inverse from it)."""
+    ops = float(B) * N ** 3
+    nbytes = 4.0 * B * (N * (N + 1) / 2 + N * N)
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+FUSED = (('ldl_factor_inverse', 'K9', 'ldl_factor_inverse_kernel',
+          'ldl_factor_inverse_plain'),
+         ('ldl_kinv', 'K10', 'ldl_kinv_kernel', 'ldl_kinv_plain'))
+
+
+@contextlib.contextmanager
+def env_set(name, value):
+    """``name=value`` in the environment for the block, restored after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def well_conditioned_kkt(B, dev, n=10, mc=14, seed=11):
+    """tests/test_ldl.py's quasidefinite [[I, -G'], [-G, -H]], float64."""
+    f64 = dict(device=dev, dtype=torch.float64)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G = torch.randn((B, mc, n), generator=g, **f64)
+    Hs = 0.3 * torch.randn((B, mc, mc), generator=g, **f64)
+    K = torch.zeros((B, n + mc, n + mc), **f64)
+    K[:, :n, :n] = torch.eye(n, **f64)
+    K[:, :n, n:] = -G.transpose(1, 2)
+    K[:, n:, :n] = -G
+    K[:, n:, n:] = -(Hs @ Hs.transpose(1, 2) + torch.eye(mc, **f64))
+    return K, np.concatenate([np.ones(n), -np.ones(mc)])
+
+
+def compare_fused(K, signs, dd, card):
+    """K9 and K10 on the entropy family's first-iteration K, beside their
+    plain versions and K6 + K7, each held to the float64 inverse of the
+    pivot-regularized K (its plain version in float64): within twice the
+    float32 plain version's distance plus LDL_APPLY_FLOOR, by both
+    measures of entry_errs (phase 10's rule for K7); then both on a
+    well-conditioned K within FUSED_WELL_TOL of its float64 inverse; then
+    their times, K6 + K7's, the plain versions' and torch.linalg.inv(K)'s.
+    Returns each kernel's numbers."""
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
+    B, N, _ = K.shape
+    numbers = {}
+    with full_f32_matmul():
+        k67 = lk.ldl_inverse_kernel(lk.ldl_factor_kernel(K, signs, dd))
+        Kw, sw = well_conditioned_kkt(B_FUSED_WELL, K.device)
+        for name, tag, kname, pname in FUSED:
+            kern, plain = getattr(lk, kname), getattr(lk, pname)
+            out = kern(K, signs, dd)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()), f'{tag}: non-finite Kinv')
+            ref = plain(K, signs, dd)
+            exact = plain(K.double(), signs, dd)
+            ek, ep = entry_errs(out, exact), entry_errs(ref, exact)
+            e67 = entry_errs(k67, exact)
+            to_plain = float(inst_err(out, ref).max())
+            well = float(inst_err(kern(Kw.float(), sw, dd),
+                                  plain(Kw, sw, dd)).max())
+            print(f'# phase 12: {tag} ({name}) on the first-iteration K, '
+                  f'B={B}, N={N}: against the float64 inverse, max |d| / '
+                  f'max(1, |v|_inf) and median entry |d| / |v|, worst '
+                  f'instance: kernel {ek[0]:.3e} and {ek[1]:.3e}, plain '
+                  f'{ep[0]:.3e} and {ep[1]:.3e}, K6 + K7 {e67[0]:.3e} and '
+                  f'{e67[1]:.3e}; kernel to plain {to_plain:.3e}; '
+                  f'well-conditioned N=24, B={B_FUSED_WELL}: {well:.3e} '
+                  f'(bar {FUSED_WELL_TOL})')
+            for what, a, b in zip(('max', 'median entry'), ek, ep):
+                check(a <= 2 * b + LDL_APPLY_FLOOR, f'{tag}: {what} error '
+                      f'{a:.3e} > 2 x plain {b:.3e} + {LDL_APPLY_FLOOR}')
+            check(well <= FUSED_WELL_TOL,
+                  f'{tag}: well-conditioned K {well:.3e} > {FUSED_WELL_TOL}')
+            numbers[name] = dict(max_abs_err=to_plain)
+    fac = lk.ldl_factor_kernel(K, signs, dd)
+    k67_ms = (cuda_ms(lambda: lk.ldl_factor_kernel(K, signs, dd), 10)[0]
+              + cuda_ms(lambda: lk.ldl_inverse_kernel(fac), 10)[0])
+    torch.linalg.inv(K)                   # its first call sets up cuSOLVER
+    lib_ms = cuda_ms(lambda: torch.linalg.inv(K), 3)[0]
+    bound_ms, bound_by, ops, nbytes = fused_bound(B, N)
+    # K9 by instances per thread block (no answer depends on it)
+    by_group = {g: lk.ldl_factor_inverse_kernel(K, signs, dd, group=g)
+                for g in (8, 4, 2)}
+    group_ms = {g: cuda_ms(lambda: lk.ldl_factor_inverse_kernel(
+        K, signs, dd, group=g), 10)[0] for g in by_group}
+    print('# phase 12: K9 by instances per block: '
+          + ', '.join(f'{g}: {ms:.4f} ms' for g, ms in group_ms.items())
+          + f' (the wrapper takes {lk.FI_GROUP}) [{card}]')
+    check(all(torch.equal(v, by_group[8]) for v in by_group.values()),
+          'K9: the answer depends on the instances per block')
+    for name, tag, kname, pname in FUSED:
+        kern, plain = getattr(lk, kname), getattr(lk, pname)
+        ms = cuda_ms(lambda: kern(K, signs, dd), 10)[0]
+        plain_ms = cuda_ms(lambda: plain(K, signs, dd), 2)[0]
+        numbers[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=lib_ms)
+        print(f'# phase 12: {name} ({tag}) at B={B}, N={N}: kernel '
+              f'{ms:.4f} ms, K6 + K7 {k67_ms:.4f} ms, plain {plain_ms:.4f} '
+              f'ms, torch.linalg.inv(K) {lib_ms:.4f} ms, bound '
+              f'{bound_ms:.5f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP FP32, '
+              f'{nbytes / 1e6:.1f} MB) [{card}]')
+    return numbers
+
+
+def fused_counts():
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    return {k: getattr(lk, k).launches for k in (
+        'ldl_factor_kernel', 'ldl_inverse_kernel', 'ldl_solve_kernel',
+        'ldl_factor_inverse_kernel', 'ldl_kinv_kernel')}
+
+
+def reset_fused_counts():
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    for k in fused_counts():
+        getattr(lk, k).launches = 0
+
+
+def phase_fused(card, K, signs, dd, esolver, etheta, est, lse, asolver,
+                atheta, tst, arefs):
+    """Phase 12: K9 and K10 against their plain versions on the entropy KKT
+    matrix, then the 'ldl' IPM through each: entropy B=1024 under
+    CPG_LDL_FUSED=1 (K9) and under CPG_LDL_BM_FUSED=1 (K10), ADP through
+    the two-level route under CPG_LDL_FUSED=1 (K9 on both levels); each
+    with every instance solved within the parity bar, the fused kernel
+    launched about once per iteration and K6, K7 and K8 never.  The
+    variables are set and restored here.  Returns the kernels' numbers and
+    the launches of their entropy runs."""
+    numbers = compare_fused(K, signs, dd, card)
+    launches = {}
+    for name, tag, kname, _ in FUSED:
+        var = 'CPG_LDL_FUSED' if tag == 'K9' else 'CPG_LDL_BM_FUSED'
+        with env_set(var, '1'):
+            reset_fused_counts()
+            out = esolver.solve_batch(etheta, settings=est)
+            counts = fused_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reps = 2
+            for _ in range(reps):
+                out = esolver.solve_batch(etheta, settings=est)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / reps
+        iters = int(out['iters'].max())
+        gate_conic(f'entropy n={ENTROPY_N} under {var}=1 ({tag})', out, lse,
+                   dt, f'{tag} {counts[kname]}, K6 '
+                   f'{counts["ldl_factor_kernel"]}, K7 '
+                   f'{counts["ldl_inverse_kernel"]}', card, maximize=True,
+                   phase='phase 12')
+        check(0 < counts[kname] <= iters + 1,
+              f'{var}: {tag} launched {counts[kname]} times in {iters} '
+              'iterations')
+        check(sum(v for k, v in counts.items() if k != kname) == 0,
+              f'{var}: other LDL kernels launched: {counts}')
+        launches[name] = counts[kname]
+    with env_set('CPG_LDL_FUSED', '1'):
+        reset_fused_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = asolver.solve_batch(atheta, settings=tst)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = fused_counts()
+    gate_conic('ADP SOCP through the two-level ldl route under '
+               'CPG_LDL_FUSED=1 (one call)', out, arefs, dt,
+               f'K9 {counts["ldl_factor_inverse_kernel"]}, others '
+               f'{sum(counts.values()) - counts["ldl_factor_inverse_kernel"]}',
+               card, phase='phase 12')
+    check(counts['ldl_factor_inverse_kernel'] > 1
+          and sum(counts.values()) == counts['ldl_factor_inverse_kernel'],
+          f'two-level under CPG_LDL_FUSED=1: launches {counts}')
+    check('CPG_LDL_FUSED' not in os.environ
+          and 'CPG_LDL_BM_FUSED' not in os.environ,
+          'phase 12 left a variable set')
     return numbers, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the fused banded iteration (kernel K11)
+# ---------------------------------------------------------------------------
+
+# K11 against its plain version and the K4 route on charging T=1440: x, z
+# and y within K11_TOL * max(1, |v|_inf) per instance after one check
+# interval of the charging settings (50 iterations) from the state that
+# K11_START_ITERS iterations of the K4 route reach from zero.  With a
+# refinement sweep, which the K4 route does not make, the distance to the
+# route is held to max(K11_TOL, twice the plain version's)
+K11_TOL = 1e-4
+K11_START_ITERS = 100
+
+
+def k11_bound(nb_tot, s, nb, n, m, nnz_a, B, n_iters, refine):
+    """Least time of K11's work on these inputs: the FP32 operations over
+    the FP32 peak against the bytes over the HBM rate.  Operations, on the
+    real data: per instance and iteration the A' and A products (nnz(A)
+    multiply-adds each) and the CR solve (every packed block applied
+    once), and per refinement sweep one more CR solve and the banded M
+    matvec (its dense blocks); element-wise updates left out.  Bytes: the
+    shared factor, A (and M) once; each instance's q, l, u in and x, z, y
+    in and out."""
+    m_words = (nb + 2 * (nb - 1)) * s * s
+    per_iter = (2 * nnz_a + nb_tot * s * s
+                + refine * (nb_tot * s * s + m_words))
+    ops = 2.0 * B * n_iters * per_iter
+    shared_words = nb_tot * s * s + nnz_a + m + refine * m_words
+    nbytes = 4.0 * (shared_words + B * 3 * (n + 2 * m))
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes', ops, nbytes)
+
+
+def inst_err_last(a, b):
+    """inst_err with the batch on the last axis (the banded layouts)."""
+    return inst_err(a.movedim(-1, 0), b.movedim(-1, 0))
+
+
+def phase_iterate(card, dev='cuda'):
+    """Phase 13: K11 on charging T=1440 at B=256 (phase 9's batch and
+    settings): the shared engine's set-up through the port's own functions,
+    a mid-solve state from the K4 route, K11 for one check interval at
+    kkt_refine 0 and 1 against its plain version and against the K4 route
+    at the same fixed rho; times and the bound; then whether K4, K11 and
+    the float32 set-up give bitwise equal results twice, and the mean
+    iterations of two eps-1e-4 solves (ROADMAP queue 3).  Returns K11's
+    numbers and the launches of its two checked calls."""
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.ops import banded_shared_kernel as k45
+    from cvxpygen_tpu_torch.runtime.solver import CompiledBandedQPSolver
+    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+
+    cprob = charging_problem(ct)
+    cfam = canonicalize(cprob)
+    cst = ADMMSettings(**CHARGING_SETTINGS)
+    csolver = CompiledBandedQPSolver(cfam, settings=cst, device=dev)
+    st, ga = csolver.struct, csolver.grouped
+    ctheta = charging_batch(cfam, cprob, B_CHARGING)
+    args = banded_args(csolver, ctheta, cst)
+    (fac, meta, B0, B1, D_P, L_P, D_M, L_M, D, Einv, E, rho, c_inv, qx, lg,
+     ug, x, z, y) = args
+    B = x.shape[-1]
+    n_it = cst.check_interval
+    done = torch.zeros((1, 1, B), dtype=torch.int32, device=dev)
+    ikw = dict(sigma=cst.sigma, alpha=cst.alpha, check_interval=n_it)
+
+    def k4_route(xs, zs, ys):
+        """The K4 route of the solve loop (K5's plain version with K4 as
+        its CR solve) for one check interval at the base rho, unscaled."""
+        k45.banded_shared_chunk_plain(
+            fac, meta, B0, B1, D_P, L_P, D_M, L_M, D, Einv, E, rho, c_inv,
+            qx, lg, ug, xs, zs, ys, done, eps_abs=cst.eps_abs,
+            eps_rel=cst.eps_rel, kkt_refine=0, solve=k45.cr_solve, **ikw)
+
+    for _ in range(K11_START_ITERS // n_it):
+        k4_route(x, z, y)
+    rho3 = rho[:, :, None]
+    ls, us = lg * rho3, ug * rho3
+
+    def scaled():
+        return x.clone(), (z * rho3).contiguous(), y.clone()
+
+    x4, z4, y4 = x.clone(), z.clone(), y.clone()
+    k4_route(x4, z4, y4)
+    max_err = 0.0
+    k45.banded_iterate.launches = 0
+    for refine in (0, 1):
+        xk, zk, yk = scaled()
+        k45.banded_iterate(fac, meta, B0, B1, D_M, L_M, rho, qx, ls, us, xk,
+                           zk, yk, kkt_refine=refine, **ikw)
+        torch.cuda.synchronize()
+        xp, zp, yp = scaled()
+        k45.banded_iterate_plain(fac, meta, B0, B1, D_M, L_M, rho, qx, ls,
+                                 us, xp, zp, yp, kkt_refine=refine, **ikw)
+        route = (x4, z4 * rho3, y4)
+        to_plain = [float(inst_err_last(a, b).max())
+                    for a, b in zip((xk, zk, yk), (xp, zp, yp))]
+        to_k4 = [float(inst_err_last(a, b).max())
+                 for a, b in zip((xk, zk, yk), route)]
+        # the K4 route has no refinement sweep: with one, the iteration
+        # differs from it by the sweep's own float32 effect, which the
+        # plain version shows; the kernel is held to twice that there
+        plain_k4 = [float(inst_err_last(a, b).max())
+                    for a, b in zip((xp, zp, yp), route)]
+        route_bar = (K11_TOL if refine == 0
+                     else max(K11_TOL, 2 * max(plain_k4)))
+        print(f'# phase 13: K11 kkt_refine={refine}, B={B}, {n_it} '
+              f'iterations from the state after {K11_START_ITERS}: max |d| '
+              f'/ max(1, |v|_inf) per instance, x, z, y: to its plain '
+              f'version ' + ', '.join(f'{e:.3e}' for e in to_plain)
+              + f' (bar {K11_TOL}); to the K4 route '
+              + ', '.join(f'{e:.3e}' for e in to_k4)
+              + f' (bar {route_bar:.3e}; the plain version to the K4 route '
+              + ', '.join(f'{e:.3e}' for e in plain_k4) + ')')
+        check(all(bool(torch.isfinite(v).all()) for v in (xk, zk, yk)),
+              f'K11 kkt_refine={refine}: non-finite state')
+        check(max(to_plain) <= K11_TOL,
+              f'K11 kkt_refine={refine}: {max(to_plain):.3e} > {K11_TOL} '
+              'from its plain version')
+        check(max(to_k4) <= route_bar,
+              f'K11 kkt_refine={refine}: {max(to_k4):.3e} > {route_bar:.3e} '
+              'from the K4 route')
+        if refine == 0:
+            max_err = max(to_plain)
+    launches = k45.banded_iterate.launches
+
+    xs, zs, ys = scaled()
+    ms = cuda_ms(lambda: k45.banded_iterate(
+        fac, meta, B0, B1, D_M, L_M, rho, qx, ls, us, xs, zs, ys,
+        kkt_refine=0, **ikw), 5)[0]
+    xs, zs, ys = scaled()
+    ms_refine = cuda_ms(lambda: k45.banded_iterate(
+        fac, meta, B0, B1, D_M, L_M, rho, qx, ls, us, xs, zs, ys,
+        kkt_refine=1, **ikw), 3)[0]
+    xs, zs, ys = scaled()
+    plain_ms = cuda_ms(lambda: k45.banded_iterate_plain(
+        fac, meta, B0, B1, D_M, L_M, rho, qx, ls, us, xs, zs, ys,
+        kkt_refine=0, **ikw), 1)[0]
+    xs, zs, ys = scaled()
+    route_ms = cuda_ms(lambda: k45.banded_iterate_plain(
+        fac, meta, B0, B1, D_M, L_M, rho, qx, ls, us, xs, zs, ys,
+        kkt_refine=0, solve=k45.cr_solve, **ikw), 3)[0]
+    bound_ms, bound_by, ops, nbytes = k11_bound(
+        meta['total'], st.s, st.nb, st.n, st.m, len(st.a_row), B, n_it, 0)
+    print(f'# phase 13: K11 at nb={st.nb}, s={st.s}, r_max={ga.r_max}, '
+          f'B={B}, {n_it} iterations: kernel {ms:.4f} ms (kkt_refine=1: '
+          f'{ms_refine:.4f} ms), plain {plain_ms:.4f} ms, the K4 route (K4 '
+          f'plus torch glue, no checks, fixed rho) {route_ms:.4f} ms, bound '
+          f'{bound_ms:.5f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP FP32, '
+          f'{nbytes / 1e6:.1f} MB) [{card}]')
+
+    # determinism of the K4 route (ROADMAP queue 3)
+    g = torch.Generator(device=dev).manual_seed(1)
+    b = torch.randn(tuple(x.shape), generator=g, device=dev, dtype=x.dtype)
+    same_k4 = torch.equal(k45.cr_solve(fac, meta, b),
+                          k45.cr_solve(fac, meta, b))
+    runs = [scaled(), scaled()]
+    for xs, zs, ys in runs:
+        k45.banded_iterate(fac, meta, B0, B1, D_M, L_M, rho, qx, ls, us, xs,
+                           zs, ys, kkt_refine=0, **ikw)
+    same_k11 = all(torch.equal(a, b) for a, b in zip(*runs))
+    args2 = banded_args(csolver, ctheta, cst)
+    same_setup = {name: torch.equal(a, b) for name, a, b in (
+        ('B0', B0, args2[2]), ('B1', B1, args2[3]), ('D_M', D_M, args2[6]),
+        ('L_M', L_M, args2[7]), ('factor', fac, args2[0]))}
+    tight = dataclasses.replace(cst, eps_abs=CHARGING_TIGHT_EPS,
+                                eps_rel=CHARGING_TIGHT_EPS)
+    means = [float(csolver.solve_batch(ctheta, settings=tight)['iters']
+                   .float().mean()) for _ in range(2)]
+    print(f'# phase 13: determinism: K4 twice on one right-hand side '
+          f'bitwise equal {same_k4}; K11 twice {same_k11}; the float32 '
+          f'set-up twice, bitwise equal: '
+          + ', '.join(f'{k} {v}' for k, v in same_setup.items())
+          + f'; charging at eps {CHARGING_TIGHT_EPS:g} twice: mean iters '
+          + ' and '.join(f'{v:.2f}' for v in means))
+    check(same_k4 and same_k11, 'K4 or K11 is not deterministic')
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None), launches
 
 
 def adp_problem(ct, n=6, m=3):
@@ -2085,7 +2498,9 @@ def main():
     k2_launches, k3_launches = phase_per_instance(fam, prob, refs, card,
                                                   portfolio)
     k4_numbers, k4_launches, k5_numbers, k5_launches = phase_banded(card)
-    ldl_numbers, ldl_launches = phase_conic(card)
+    ldl_numbers, ldl_launches, fused_numbers, fused_launches = \
+        phase_conic(card)
+    k11_numbers, k11_launches = phase_iterate(card)
     kernels = [
         dict(name='admm_shared_solve', route='cuda',
              source='cvxpygen_tpu_torch/csrc/admm_shared.cu',
@@ -2115,6 +2530,19 @@ def main():
             source=f'cvxpygen_tpu_torch/csrc/{src}',
             replaces=f'cvxpygen_tpu/ops/ldl_kernel.py:{line}',
             launches=ldl_launches[name], **ldl_numbers[name]))
+    for name, src, line in (('ldl_factor_inverse', 'ldl_factor_inverse.cu',
+                             441), ('ldl_kinv', 'ldl_kinv.cu', 334)):
+        kernels.append(dict(
+            name=name, route='cuda',
+            source=f'cvxpygen_tpu_torch/csrc/{src}',
+            replaces=f'cvxpygen_tpu/ops/ldl_kernel.py:{line}',
+            launches=fused_launches[name], **fused_numbers[name]))
+    kernels.append(dict(
+        name='banded_iterate', route='cuda',
+        source='cvxpygen_tpu_torch/csrc/banded_iterate.cu',
+        replaces='cvxpygen_tpu/ops/banded_shared_kernel.py:511',
+        launches=k11_launches, **k11_numbers))
+    check(len(kernels) == 11, f'{len(kernels)} kernels in the line')
     print(f'# chip_smoke.py: all phases {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(card)

@@ -152,8 +152,11 @@ def pack_cr_levels(fac):
     Layout per level: [Dinv_odd (n2), A (na), C (n2), L_left (nl),
     L_even (ne)], then root_inv (1).  Returns (packed, meta) with
     meta = list of dicts of (offset, count) per tensor + 'root' offset.
-    The 'lleft' offsets index the reference's separate L_left pack, which
-    only its experimental fused-iterate kernel reads; they are kept so
+    The 'lleft' offsets index the reference's separate L_left pack
+    (its ``pack_lleft``), which only its fused-iterate kernel reads; the
+    port's counterpart, kernel K11 (ops/banded_shared_kernel.
+    banded_iterate), reads L_left from this packed factor through
+    csrc/cr.cuh, so ``pack_lleft`` has no port.  The offsets are kept so
     that the metadata equals the reference's."""
     parts = []
     meta = []

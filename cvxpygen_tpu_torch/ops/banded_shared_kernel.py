@@ -18,9 +18,16 @@ tensor (ops/banded_grouped.pack_cr_levels).  Two kernels use that factor:
   ``banded_shared_chunk``); the small-nb engine (``_impl``) launches it
   once per check interval.  CUDA source: csrc/banded_chunk.cu.
 
-Both share the CR solve of csrc/cr.cuh.  Each wrapper runs its plain
-torch version (``cr_solve_plain``, ``banded_shared_chunk_plain``, the same
-arithmetic) on CPU tensors and launches its CUDA kernel (float32, built
+- K11, ``banded_iterate``: ``check_interval`` fused ADMM iterations per
+  instance on the rho-scaled state, no checks, for any nb (the shared
+  memory of one block holds x, z, y and the CR buffers of charging
+  T=1440).  Replaces ``_banded_iterate_kernel`` (wrapper
+  ``banded_iterate``), which the reference ships but no solver calls; no
+  solver of the port calls it either.  CUDA source: csrc/banded_iterate.cu.
+
+All three share the CR solve of csrc/cr.cuh.  Each wrapper runs its plain
+torch version (``cr_solve_plain``, ``banded_shared_chunk_plain``,
+``banded_iterate_plain``, the same arithmetic) on CPU tensors and launches its CUDA kernel (float32, built
 with nvcc at first use, bound with ctypes, one count per launch in
 ``.launches``) on CUDA tensors, or raises: there is no fallback.
 
@@ -57,6 +64,7 @@ _MAX_LEVELS = 32
 
 _LIB_CR = None
 _LIB_CHUNK = None
+_LIB_ITERATE = None
 
 
 def cr_level_shapes(nb):
@@ -111,6 +119,14 @@ def chunk_smem_words(nb, s, r_max):
     """Shared-memory words of one K5 block (csrc/banded_chunk.cu): x, q,
     x0 and z, y, l, u, y0, rho, v of one instance, and the CR solve."""
     return 3 * nb * s + 7 * nb * r_max + cr_smem_words(nb, s)
+
+
+def iterate_smem_words(nb, s, r_max, kkt_refine):
+    """Shared-memory words of one K11 block (csrc/banded_iterate.cu): x, z
+    and y of one instance, the right-hand side and the refined solution
+    when ``kkt_refine`` > 0, and the CR solve."""
+    return (nb * s * (3 if kkt_refine else 1) + 2 * nb * r_max
+            + cr_smem_words(nb, s))
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +201,24 @@ def grouped_av(B0, B1, x):
     return torch.matmul(B0, x) + torch.matmul(B1, x_hi)
 
 
+def grouped_atv(B0, B1, v):
+    """The grouped A' product: v (nb, r_max, B) -> (nb, s, B); the B1 half
+    lands one block down."""
+    lo = _mvT(B0, v)
+    hi = _mvT(B1, v)
+    return torch.cat([lo[:1], lo[1:] + hi[:-1]], dim=0)
+
+
+def bt_mv(Dm, Lm, xb):
+    """Block-tridiagonal matvec with shared blocks: diagonal Dm (nb, s, s),
+    sub-diagonal Lm (nb - 1, s, s); xb (nb, s, B)."""
+    yv = _mv(Dm, xb)
+    lo = _mv(Lm, xb[:-1])
+    up = _mvT(Lm, xb[1:])
+    yv = torch.cat([yv[:1], yv[1:] + lo], dim=0)
+    return torch.cat([yv[:-1] + up, yv[-1:]], dim=0)
+
+
 def banded_shared_chunk_plain(fac_packed, meta, B0, B1, D_P, L_P, D_M, L_M,
                               D, E_inv, E, rho, c_inv, q, l, u, x, z, y,
                               done, *, sigma, alpha, eps_abs, eps_rel,
@@ -196,7 +230,7 @@ def banded_shared_chunk_plain(fac_packed, meta, B0, B1, D_P, L_P, D_M, L_M,
     default, kernel K4 in the large-nb engine."""
     from ..solvers.admm import full_f32_matmul
     _check_refine(kkt_refine)
-    nb, s, B = x.shape
+    B = x.shape[-1]
     dtype = x.dtype
     rho3 = rho.to(dtype)[:, :, None]            # (nb, r_max, 1), pads 1
     E_inv3 = E_inv.to(dtype)[:, :, None]        # pads 0
@@ -209,16 +243,7 @@ def banded_shared_chunk_plain(fac_packed, meta, B0, B1, D_P, L_P, D_M, L_M,
         return grouped_av(B0, B1, xb)
 
     def Atv(v):
-        lo = _mvT(B0, v)
-        hi = _mvT(B1, v)
-        return torch.cat([lo[:1], lo[1:] + hi[:nb - 1]], dim=0)
-
-    def bt_mv(Dm, Lm, xb):
-        yv = _mv(Dm, xb)
-        lo = _mv(Lm, xb[:-1])
-        up = _mvT(Lm, xb[1:])
-        yv = torch.cat([yv[:1], yv[1:] + lo], dim=0)
-        return torch.cat([yv[:-1] + up, yv[-1:]], dim=0)
+        return grouped_atv(B0, B1, v)
 
     def inf_norm(v):                    # (nb, ., B) -> (B,)
         return torch.amax(torch.abs(v), dim=(0, 1))
@@ -290,6 +315,39 @@ def banded_shared_chunk_plain(fac_packed, meta, B0, B1, D_P, L_P, D_M, L_M,
     return x, z, y, rp, rd, rp_den, rd_den, flags
 
 
+def banded_iterate_plain(fac_packed, meta, B0, B1, D_M, L_M, rho_g, q, l, u,
+                         x, z, y, *, sigma, alpha, check_interval,
+                         kkt_refine, solve=cr_solve_plain):
+    """K11's arithmetic in torch: the reference kernel's iteration on the
+    rho-scaled state (z and the bounds l, u arrive multiplied by rho, as
+    its caller passes them; the A stores of the z-update are scaled by
+    ``rho_g`` here), with ``kkt_refine`` sweeps of refinement against the
+    banded M = (D_M, L_M).  Same contract as ``banded_iterate``: x, z, y
+    are updated in place.  ``solve`` is the CR solve: the plain version by
+    default, kernel K4 for the K4 route."""
+    from ..solvers.admm import full_f32_matmul
+    rho3 = rho_g.to(x.dtype)[:, :, None]
+    with full_f32_matmul():
+        B0r, B1r = B0 * rho3, B1 * rho3
+        xn, zn, yn = x, z, y
+        for _ in range(check_interval):
+            rhs = sigma * xn - q + grouped_atv(B0, B1, zn - yn)
+            xt = solve(fac_packed, meta, rhs)
+            for _ in range(kkt_refine):
+                xt = xt + solve(fac_packed, meta,
+                                rhs - bt_mv(D_M, L_M, xt))
+            wt = (alpha * grouped_av(B0r, B1r, xt) + (1.0 - alpha) * zn
+                  + yn)
+            z1 = torch.minimum(torch.maximum(wt, l), u)
+            yn = wt - z1
+            zn = z1
+            xn = alpha * xt + (1.0 - alpha) * xn
+    x.copy_(xn)
+    z.copy_(zn)
+    y.copy_(yn)
+    return x, z, y
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -307,6 +365,12 @@ def _bind_chunk(lib):
                                      + [P])
 
 
+def _bind_iterate(lib):
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.banded_iterate_f32.restype = I
+    lib.banded_iterate_f32.argtypes = [P] * 13 + [P] + [I] * 6 + [F] * 2 + [P]
+
+
 def build_cr_kernel(verbose=False):
     """Compile csrc/cr_solve.cu (K4) for sm_90a and load it.  Returns the
     build's wall seconds (0.0 when already loaded)."""
@@ -321,6 +385,15 @@ def build_chunk_kernel(verbose=False):
     global _LIB_CHUNK
     _LIB_CHUNK, secs = load_library('banded_chunk', _bind_chunk,
                                     verbose=verbose)
+    return secs
+
+
+def build_iterate_kernel(verbose=False):
+    """Compile csrc/banded_iterate.cu (K11) for sm_90a and load it.
+    Returns the build's wall seconds (0.0 when already loaded)."""
+    global _LIB_ITERATE
+    _LIB_ITERATE, secs = load_library('banded_iterate', _bind_iterate,
+                                      verbose=verbose)
     return secs
 
 
@@ -441,3 +514,82 @@ def banded_shared_chunk(fac_packed, meta, B0, B1, D_P, L_P, D_M, L_M, D,
 
 
 banded_shared_chunk.launches = 0
+
+
+def banded_iterate(fac_packed, meta, B0, B1, D_M, L_M, rho_g, q, l, u, x, z,
+                   y, *, sigma, alpha, check_interval, kkt_refine):
+    """Run check_interval fused ADMM iterations on the rho-scaled state
+    (K11; the contract of the reference's ``banded_iterate``).
+
+    Layouts as in ``banded_shared_chunk``: q/x (nb, s, B); l/u/z/y
+    (nb, r_max, B), where z, l and u are the rho-scaled row-space state and
+    bounds (rho z, rho l, rho u) the caller passes; rho_g (nb, r_max)
+    shared, by which the wrapper scales the A stores of the z-update.  D_M
+    and L_M, the banded M, serve the ``kkt_refine`` refinement sweeps
+    (None when it is 0).  x, z, y are updated IN PLACE, as the reference
+    aliases them.  Per iteration:
+        rhs = sigma x - q + A'(z - y);  x~ = M^-1 rhs (+ refinement)
+        w = alpha rho A x~ + (1 - alpha) z + y;  z = clip(w, l, u);
+        y = w - z;  x = alpha x~ + (1 - alpha) x.
+    The reference's ``ll_pack`` argument (its separate pack of the
+    untransposed L_left blocks, ops/banded_grouped.py::pack_lleft) is
+    dropped: csrc/cr.cuh reads L_left from the packed factor itself.  So
+    are its ``chunk`` and ``interpret``: one thread block per instance.
+    Returns (x, z, y).  CPU tensors run ``banded_iterate_plain``; CUDA
+    tensors launch the kernel (float32) or raise."""
+    args = (fac_packed, meta, B0, B1, D_M, L_M, rho_g, q, l, u, x, z, y)
+    kw = dict(sigma=sigma, alpha=alpha, check_interval=check_interval,
+              kkt_refine=kkt_refine)
+    if x.device.type == 'cpu':
+        return banded_iterate_plain(*args, **kw)
+    if x.device.type != 'cuda':
+        raise TypeError(f'banded iterate kernel: no kernel for {x.device}')
+    nb, s, B = x.shape
+    r_max = l.shape[1]
+    dev = x.device
+    kkt_refine = int(kkt_refine)
+    if kkt_refine < 0 or int(check_interval) < 0:
+        raise ValueError('banded iterate kernel: negative kkt_refine or '
+                         'check_interval')
+    if 4 * iterate_smem_words(nb, s, r_max, kkt_refine) > _SMEM_LIMIT:
+        raise ValueError(f'banded iterate kernel: nb={nb}, s={s}, '
+                         f'r_max={r_max} does not fit shared memory')
+    rho3 = checked(rho_g, 'rho_g', (nb, r_max), dev)[:, :, None]
+    B0 = checked(B0, 'B0', (nb, r_max, s), dev)
+    B1 = checked(B1, 'B1', (nb, r_max, s), dev)
+    refine = []
+    if kkt_refine:
+        refine = [checked(D_M, 'D_M', (nb, s, s), dev),
+                  checked(L_M, 'L_M', (nb - 1, s, s), dev)]
+    # the A stores of the z-update scaled by rho (the reference's wrapper
+    # side), and q, l, u instance-major so that each block's reads are
+    # contiguous
+    ins = [checked(fac_packed, 'fac_packed', (meta['total'], s, s), dev),
+           B0, B1, (B0 * rho3).contiguous(), (B1 * rho3).contiguous()]
+    inst = [checked(q, 'q', (nb, s, B), dev).permute(2, 0, 1).contiguous(),
+            checked(l, 'l', (nb, r_max, B), dev).permute(2, 0,
+                                                         1).contiguous(),
+            checked(u, 'u', (nb, r_max, B), dev).permute(2, 0,
+                                                         1).contiguous()]
+    state = [_in_place(x, 'x', (nb, s, B), dev),
+             _in_place(z, 'z', (nb, r_max, B), dev),
+             _in_place(y, 'y', (nb, r_max, B), dev)]
+    build_iterate_kernel()
+    ptrs = [t.data_ptr() for t in ins] + [
+        refine[0].data_ptr() if refine else None,
+        refine[1].data_ptr() if refine else None] + [
+        t.data_ptr() for t in inst + state]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _LIB_ITERATE.banded_iterate_f32(
+            *ptrs, _meta_ptr(meta, nb, s), B, nb, s, r_max,
+            int(check_interval), kkt_refine, float(sigma), float(alpha),
+            stream)
+    if err != 0:
+        raise RuntimeError(f'banded_iterate kernel launch failed: CUDA error '
+                           f'{err}')
+    banded_iterate.launches += 1
+    return x, z, y
+
+
+banded_iterate.launches = 0

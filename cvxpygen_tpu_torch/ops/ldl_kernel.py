@@ -11,20 +11,34 @@ IPM's 'ldl' KKT mode, written by hand for Hopper.
 - K8, ``ldl_solve_kernel``: one solve with the factor (``_solve_kernel``,
   wrapper ``ldl_solve_pallas``), the IPM's route with
   ``IPMSettings(ldl_inverse=False)``.  CUDA source: csrc/ldl_solve.cu.
+- K9, ``ldl_factor_inverse_kernel``: factor and explicit inverse in one
+  launch with the instances interleaved, layout (Np, Np, B)
+  (``_factor_inverse_kernel``, wrapper ``ldl_factor_inverse_pallas``), the
+  IPM's route under ``CPG_LDL_FUSED=1``.  CUDA source:
+  csrc/ldl_factor_inverse.cu.
+- K10, ``ldl_kinv_kernel``: factor and explicit inverse in one launch,
+  batch-major (``_factor_inverse_bm_kernel``, wrapper ``ldl_kinv_pallas``),
+  the IPM's route under ``CPG_LDL_BM_FUSED=1``.  CUDA source:
+  csrc/ldl_kinv.cu.
 
 The contracts are the reference wrappers': the factor is a dict with L
 (B, Np, Np), d (B, Np), Linv stored flat (B, nbp * p, p), panel, N and Np,
 where Np pads N to a multiple of the panel with an identity tail; the
-inverse returns (B, N, N) and the solve (B, N).  Each wrapper runs its
-plain torch version (``ldl_factor_plain``, ``ldl_inverse_plain``,
-``ldl_solve_plain``: the panel math of ops/ldl_batched.py) on CPU tensors,
+inverse returns (B, N, N) and the solve (B, N); K9 and K10 take K
+(B, N, N) and return the inverse (B, N, N) of the pivot-regularized K.
+Each wrapper runs its plain torch version (``ldl_factor_plain``,
+``ldl_inverse_plain``, ``ldl_solve_plain``, ``ldl_factor_inverse_plain``,
+``ldl_kinv_plain``: the panel math of ops/ldl_batched.py) on CPU tensors,
 and on CUDA tensors launches its kernel (float32, built with nvcc at first
 use, bound with ctypes, one count per launch in ``.launches``) or raises:
 there is no fallback.
 
 What bounds them on the card (notes in the CUDA sources): bytes (K6: the
 lower triangle of K in, L out; K7: the lower triangle of L in, Kinv out;
-K8: the lower triangle of L in).  K6 keeps an instance's working matrix in
+K8: the lower triangle of L in); K9 and K10 operations, narrowly (N^3
+FLOP against the lower triangle of K in, Kinv out).  No batch padding:
+every instance is independent in all five kernels, so no block size
+changes an answer.  K6 keeps an instance's working matrix in
 shared memory up to Np = 224 (the largest multiple of the 16-wide panel
 that fits) and in a device scratch the wrapper allocates above that.
 """
@@ -35,11 +49,18 @@ import ctypes
 import torch
 
 from .build import checked, load_library
-from .ldl_batched import ldl_factor, ldl_inverse, ldl_solve, padded_signs
+from .ldl_batched import (ldl_factor, ldl_inverse, ldl_solve, pad_identity,
+                          padded_signs)
 
 _LIB_FACTOR = None
 _LIB_INVERSE = None
 _LIB_SOLVE = None
+_LIB_KINV = None
+_LIB_FI = None
+# K9's instances per thread block: at the entropy shape (Np=176), 8 gives
+# 128 blocks of 512 threads, one per SM (chip_smoke.py phase 12 times 8, 4
+# and 2)
+FI_GROUP = 8
 # K7's grid is (column tiles, instances); grid.y takes at most 65535
 _GRID_Y = 65535
 
@@ -68,6 +89,96 @@ ldl_inverse_plain = ldl_inverse
 ldl_solve_plain = ldl_solve
 
 
+def ldl_kinv_plain(K, signs, dyn_delta, panel: int = 16):
+    """K10's arithmetic in torch: the batch-major panel factor of K6
+    (ops/ldl_batched.ldl_factor), then K7's two panel sweeps on the
+    identity; returns the inverse (B, N, N) of the pivot-regularized K."""
+    return ldl_inverse(ldl_factor(K, panel=panel, signs=signs,
+                                  dyn_delta=dyn_delta))
+
+
+def ldl_factor_inverse_plain(K, signs, dyn_delta, panel: int = 16):
+    """K9's arithmetic in torch, batch-major, in the elimination order of
+    the reference's ``_factor_inverse_kernel``: the trailing matrix kept
+    square and symmetric, row j of a panel step taken from it (not the
+    transposed column), L11's inverse, L21 and the trailing update as
+    sequential multiply-add loops over the panel index, then the two panel
+    sweeps on the identity the same way.  Returns the inverse (B, N, N) of
+    the pivot-regularized K."""
+    B, N, _ = K.shape
+    p, Np = _dims(N, panel)
+    nbp = Np // p
+    sg = padded_signs(signs, N, Np)
+    delta = float(dyn_delta)
+    A = pad_identity(K, Np).clone()
+    L = torch.zeros_like(A)              # the L21 blocks
+    d = K.new_zeros((B, Np))
+    V = K.new_zeros((B, Np, p))          # the panel inverses
+    idx = torch.arange(p, device=K.device)
+    for k in range(nbp):
+        o = k * p
+        P = A[:, o:o + p, o:o + p].clone()
+        L11 = K.new_zeros((B, p, p))     # strictly lower
+        for j in range(p):
+            sj = float(sg[o + j])
+            dj = (sj * torch.clamp(sj * P[:, j, j], min=delta))[:, None]
+            col = torch.where(idx > j, P[:, :, j] / dj, 0.0)
+            row = torch.where(idx > j, P[:, j, :] / dj, 0.0)
+            L11[:, :, j] = col
+            d[:, o + j] = dj[:, 0]
+            P = P - dj[:, :, None] * col[:, :, None] * row[:, None, :]
+        Linv = K.new_zeros((B, p, p))
+        for i in range(p):
+            acc = (idx == i).to(K.dtype).expand(B, p)
+            for j in range(i):
+                acc = acc - L11[:, i, j:j + 1] * Linv[:, j, :]
+            Linv[:, i, :] = acc
+        V[:, o:o + p, :] = Linv
+        if o + p < Np:
+            d1 = d[:, None, o:o + p]
+            Minv = Linv.transpose(1, 2) / d1
+            A21 = A[:, o + p:, o:o + p]
+            L21 = A21[:, :, 0:1] * Minv[:, 0:1, :]
+            for j in range(1, p):
+                L21 = L21 + A21[:, :, j:j + 1] * Minv[:, j:j + 1, :]
+            L[:, o + p:, o:o + p] = L21
+            W = L21 * d1
+            tr = A[:, o + p:, o + p:]
+            for j in range(p):
+                tr = tr - W[:, :, j:j + 1] * L21[:, None, :, j]
+            A[:, o + p:, o + p:] = tr
+    # the inverse: forward L Z = I, diagonal, backward L' X = W
+    X = torch.eye(Np, dtype=K.dtype, device=K.device).repeat(B, 1, 1)
+    for k in range(nbp):
+        o = k * p
+        Lv, Rk = V[:, o:o + p, :], X[:, o:o + p, :]
+        Zk = Lv[:, :, 0:1] * Rk[:, 0:1, :]
+        for j in range(1, p):
+            Zk = Zk + Lv[:, :, j:j + 1] * Rk[:, j:j + 1, :]
+        X[:, o:o + p, :] = Zk
+        if o + p < Np:
+            L21 = L[:, o + p:, o:o + p]
+            Rl = X[:, o + p:, :]
+            for j in range(p):
+                Rl = Rl - L21[:, :, j:j + 1] * Zk[:, j:j + 1, :]
+            X[:, o + p:, :] = Rl
+    X = X / d[:, :, None]
+    for k in reversed(range(nbp)):
+        o = k * p
+        LvT, Wk = V[:, o:o + p, :].transpose(1, 2), X[:, o:o + p, :]
+        Xk = LvT[:, :, 0:1] * Wk[:, 0:1, :]
+        for j in range(1, p):
+            Xk = Xk + LvT[:, :, j:j + 1] * Wk[:, j:j + 1, :]
+        X[:, o:o + p, :] = Xk
+        if o:
+            LkT = L[:, o:o + p, :o].transpose(1, 2)
+            Ru = X[:, :o, :]
+            for j in range(p):
+                Ru = Ru - LkT[:, :, j:j + 1] * Xk[:, j:j + 1, :]
+            X[:, :o, :] = Ru
+    return X[:, :N, :N]
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -90,6 +201,22 @@ def _bind_solve(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ldl_solve_f32.restype = I
     lib.ldl_solve_f32.argtypes = [P, P, P, P, I, I, I, I, P, P]
+
+
+def _bind_kinv(lib):
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ldl_kinv_f32.restype = I
+    lib.ldl_kinv_f32.argtypes = [P, I, I, I, I, P, F, P, P, P]
+    lib.ldl_kinv_resident.restype = I
+    lib.ldl_kinv_resident.argtypes = [I, I, I]
+
+
+def _bind_fi(lib):
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ldl_factor_inverse_f32.restype = I
+    lib.ldl_factor_inverse_f32.argtypes = [P, I, I, I, I, P, F, P, P, I, P]
+    lib.ldl_fi_group.restype = I
+    lib.ldl_fi_group.argtypes = [I, I, I, I]
 
 
 def build_factor_kernel(verbose=False):
@@ -117,10 +244,31 @@ def build_solve_kernel(verbose=False):
     return secs
 
 
+def build_kinv_kernel(verbose=False):
+    """Compile csrc/ldl_kinv.cu (K10) for sm_90a and load it."""
+    global _LIB_KINV
+    _LIB_KINV, secs = load_library('ldl_kinv', _bind_kinv, verbose=verbose)
+    return secs
+
+
+def build_factor_inverse_kernel(verbose=False):
+    """Compile csrc/ldl_factor_inverse.cu (K9) for sm_90a and load it."""
+    global _LIB_FI
+    _LIB_FI, secs = load_library('ldl_factor_inverse', _bind_fi,
+                                 verbose=verbose)
+    return secs
+
+
 def _cuda_device(t, what):
     if t.device.type != 'cuda':
         raise TypeError(f'{what} kernel: no kernel for {t.device}')
     return t.device
+
+
+def _signs_on(signs, N, Np, dev):
+    """The padded pivot signs as a float32 tensor on ``dev``."""
+    return torch.as_tensor(padded_signs(signs, N, Np), dtype=torch.float32,
+                           device=dev)
 
 
 def _raise_on(err, what):
@@ -139,8 +287,7 @@ def ldl_factor_kernel(K, signs, dyn_delta, panel: int = 16):
     B, N, _ = K.shape
     p, Np = _dims(N, panel)
     K = checked(K, 'K', (B, N, N), dev)
-    sg = torch.as_tensor(padded_signs(signs, N, Np), dtype=torch.float32,
-                         device=dev)
+    sg = _signs_on(signs, N, Np, dev)
     build_factor_kernel()
     L = torch.empty((B, Np, Np), dtype=torch.float32, device=dev)
     d = torch.empty((B, Np), dtype=torch.float32, device=dev)
@@ -226,3 +373,75 @@ def ldl_solve_kernel(fac, b):
 
 ldl_solve_kernel.launches = 0
 
+
+
+def ldl_kinv_kernel(K, signs, dyn_delta, panel: int = 16):
+    """Inverse (B, N, N) of the pivot-regularized K (B, N, N), factor and
+    inverse in one launch, batch-major (K10; the contract of
+    ``ldl_kinv_pallas``).  CPU tensors run ``ldl_kinv_plain``; CUDA
+    tensors launch the kernel (float32) or raise."""
+    if K.device.type == 'cpu':
+        return ldl_kinv_plain(K, signs, dyn_delta, panel)
+    dev = _cuda_device(K, 'LDL factor+inverse (batch-major)')
+    B, N, _ = K.shape
+    p, Np = _dims(N, panel)
+    K = checked(K, 'K', (B, N, N), dev)
+    sg = _signs_on(signs, N, Np, dev)
+    build_kinv_kernel()
+    Kinv = torch.empty((B, N, N), dtype=torch.float32, device=dev)
+    # the working matrix stays in shared memory beside the inverse's strip
+    # when it fits, else in a device scratch (same kernel)
+    scratch = None
+    if not _LIB_KINV.ldl_kinv_resident(N, Np, p):
+        scratch = torch.empty((B, Np, Np), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _LIB_KINV.ldl_kinv_f32(
+            K.data_ptr(), B, N, Np, p, sg.data_ptr(), float(dyn_delta),
+            Kinv.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            stream)
+    _raise_on(err, 'ldl_kinv')
+    ldl_kinv_kernel.launches += 1
+    return Kinv
+
+
+ldl_kinv_kernel.launches = 0
+
+
+def ldl_factor_inverse_kernel(K, signs, dyn_delta, panel: int = 16,
+                              group: int = FI_GROUP):
+    """Inverse (B, N, N) of the pivot-regularized K (B, N, N), factor and
+    inverse in one launch with the instances interleaved (K9; the contract
+    of ``ldl_factor_inverse_pallas``).  As the reference's wrapper does,
+    the padded K is transposed to (Np, Np, B) for the kernel (which
+    overwrites that copy) and the inverse transposed back.  ``group``
+    caps the instances that one thread block interleaves (1, 2, 4 or 8;
+    no answer depends on it).  CPU tensors run
+    ``ldl_factor_inverse_plain``; CUDA tensors launch the kernel (float32)
+    or raise."""
+    if K.device.type == 'cpu':
+        return ldl_factor_inverse_plain(K, signs, dyn_delta, panel)
+    dev = _cuda_device(K, 'LDL factor+inverse (interleaved)')
+    B, N, _ = K.shape
+    p, Np = _dims(N, panel)
+    K = checked(K, 'K', (B, N, N), dev)
+    sg = _signs_on(signs, N, Np, dev)
+    build_factor_inverse_kernel()
+    if not _LIB_FI.ldl_fi_group(N, Np, p, int(group)):
+        raise ValueError(f'ldl_factor_inverse kernel: Np={Np} does not fit '
+                         f'shared memory, or group={group} is not 1, 2, 4 '
+                         'or 8')
+    T = pad_identity(K, Np).permute(1, 2, 0).contiguous()
+    V = torch.empty((Np, p, B), dtype=torch.float32, device=dev)
+    KinvT = torch.empty((N, N, B), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _LIB_FI.ldl_factor_inverse_f32(
+            T.data_ptr(), B, N, Np, p, sg.data_ptr(), float(dyn_delta),
+            V.data_ptr(), KinvT.data_ptr(), int(group), stream)
+    _raise_on(err, 'ldl_factor_inverse')
+    ldl_factor_inverse_kernel.launches += 1
+    return KinvT.permute(2, 0, 1).contiguous()
+
+
+ldl_factor_inverse_kernel.launches = 0

@@ -17,7 +17,10 @@ KKT solve modes (``kkt_solver``):
   explicit inverse K7, or the sweep solve K8 with ``ldl_inverse=False``;
   on CPU tensors their plain versions); ``ldl_two_level`` factors the
   fixed saddle block once and the cone-scaling Schur complement per
-  iteration, through K6 and K7 as well;
+  iteration, through K6 and K7 as well.  The reference's opt-ins pick the
+  fused factor + inverse kernels on CUDA (``_kinv_route``):
+  ``CPG_LDL_FUSED=1`` kernel K9, else ``CPG_LDL_BM_FUSED=1`` kernel K10
+  (full K only);
 - ``'schur'``: dz and dnu eliminated, the SPD Schur complement inverted by
   Newton-Schulz (``torch.matmul``, no factorization); ``'schur_chol'`` and
   ``'schur_lu'`` factor it by batched Cholesky or Jacobi-scaled LU;
@@ -35,10 +38,8 @@ ends with one host read of whether every instance has finished, and
 finished instances are frozen as the reference's ``status``/``it_vec``
 freeze them.  The reference's ``CPG_LDL_PALLAS`` switch (its XLA lowering
 on a TPU) has no counterpart: on CUDA the 'ldl' mode always runs the
-kernels.  The opt-in fused factor+inverse kernels of the reference
-(``CPG_LDL_FUSED=1``, ``CPG_LDL_BM_FUSED=1``) are not ported yet and raise
-on CUDA; off the TPU the reference ignores them, and so does the port off
-CUDA.
+kernels.  Off the TPU the reference ignores ``CPG_LDL_FUSED`` and
+``CPG_LDL_BM_FUSED``, and so does the port off CUDA.
 """
 from __future__ import annotations
 
@@ -50,17 +51,13 @@ import numpy as np
 import torch
 
 from ..ops.ldl_batched import default_delta
-from ..ops.ldl_kernel import (ldl_factor_kernel, ldl_inverse_kernel,
+from ..ops.ldl_kernel import (ldl_factor_inverse_kernel, ldl_factor_kernel,
+                              ldl_inverse_kernel, ldl_kinv_kernel,
                               ldl_solve_kernel)
 from .admm import full_f32_matmul, newton_schulz_inverse
 from .ipm_cones import (ExoticCones, ExoticScaling, exotic_centrality_alpha,
                         exotic_dual_dist, exotic_init, exotic_max_step,
                         exotic_primal_dist)
-
-_FUSED_NOT_PORTED = ('{var}=1 selects the fused LDL factor+inverse kernel '
-                     '{k}, which is not ported yet: ROADMAP.md queue 1 '
-                     'item 9 (kernels K9 and K10)')
-
 
 @dataclass(frozen=True)
 class IPMSettings:
@@ -351,25 +348,31 @@ def _mtv(M, v):
     return torch.einsum('bij,bi->bj', M, v)
 
 
-def _fused_opt_ins(device, names):
-    """On CUDA, raise for the reference's opt-in fused LDL kernels (not
-    ported yet); elsewhere the variables do nothing, as off the TPU in the
-    reference."""
-    if device.type != 'cuda':
-        return
-    for var, k in (('CPG_LDL_FUSED', 'K9'), ('CPG_LDL_BM_FUSED', 'K10')):
-        if var in names and os.environ.get(var, '0') == '1':
-            raise NotImplementedError(_FUSED_NOT_PORTED.format(var=var, k=k))
+def _kinv_route(device, st, two_level):
+    """Which kernels build the explicit inverse of the 'ldl' mode's K, by
+    the reference's rule (its ``_ldl_kinv`` and full-K branch): on CUDA
+    with ``ldl_inverse``, ``CPG_LDL_FUSED=1`` takes kernel K9 ('k9');
+    otherwise, for the full K only, ``CPG_LDL_BM_FUSED=1`` takes kernel K10
+    ('k10'); otherwise K6 then K7 ('k6k7').  Off CUDA, and with
+    ``ldl_inverse=False`` (K6 + K8), the variables change nothing."""
+    if device.type != 'cuda' or not st.ldl_inverse:
+        return 'k6k7'
+    if os.environ.get('CPG_LDL_FUSED', '0') == '1':
+        return 'k9'
+    if not two_level and os.environ.get('CPG_LDL_BM_FUSED', '0') == '1':
+        return 'k10'
+    return 'k6k7'
 
 
 def _ldl_kinv(K, signs, st):
     """Explicit inverse of the pivot-regularized quasidefinite K: kernel K6
-    then kernel K7 (their plain versions on CPU tensors).  Shared by the
-    two levels of the two-level fixed-Schur path."""
-    _fused_opt_ins(K.device, ('CPG_LDL_FUSED',))
-    fac = ldl_factor_kernel(K, signs,
-                            st.ldl_dyn_delta or default_delta(K.dtype))
-    return ldl_inverse_kernel(fac)
+    then kernel K7, or kernel K9 under ``CPG_LDL_FUSED=1`` (their plain
+    versions on CPU tensors).  Shared by the two levels of the two-level
+    fixed-Schur path."""
+    dd = st.ldl_dyn_delta or default_delta(K.dtype)
+    if _kinv_route(K.device, st, two_level=True) == 'k9':
+        return ldl_factor_inverse_kernel(K, signs, dd)
+    return ldl_inverse_kernel(ldl_factor_kernel(K, signs, dd))
 
 
 def ipm_solve(P, q, E, f, G, h, l_nonneg: int, socs: Tuple[int, ...],
@@ -639,14 +642,18 @@ def _ipm_solve_impl(P, q, E, f, G, h, l_nonneg, socs, st, n_exp, psd_dims,
             K[:, n + mz:, :n] = -G
             K[:, n + mz:, n + mz:] = -cone_H(W, ES)
             signs = np.concatenate([np.ones(n), -np.ones(mz + mc)])
-            if st.ldl_inverse:
-                _fused_opt_ins(dev, ('CPG_LDL_FUSED', 'CPG_LDL_BM_FUSED'))
-            fac = ldl_factor_kernel(K, signs,
-                                    st.ldl_dyn_delta or default_delta(dtype))
-            if st.ldl_inverse:
-                # kernel K7 once per factorization; each solve one product
-                Kinv = ldl_inverse_kernel(fac)
-
+            dd = st.ldl_dyn_delta or default_delta(dtype)
+            route = _kinv_route(dev, st, two_level=False)
+            if route == 'k9':
+                Kinv = ldl_factor_inverse_kernel(K, signs, dd)
+            elif route == 'k10':
+                Kinv = ldl_kinv_kernel(K, signs, dd)
+            else:
+                fac = ldl_factor_kernel(K, signs, dd)
+                # kernel K7 once per factorization, or K8 in every solve
+                Kinv = ldl_inverse_kernel(fac) if st.ldl_inverse else None
+            if Kinv is not None:
+                # each solve one product
                 def ldl_apply(rhs):
                     return _mv(Kinv, rhs)
             else:

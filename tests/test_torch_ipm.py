@@ -207,16 +207,25 @@ def test_entropy_default_scaling_reaches_optimum(entropy, mode):
 
 
 def test_fused_opt_ins_ignored_off_cuda(monkeypatch):
-    """CPG_LDL_FUSED / CPG_LDL_BM_FUSED select the unported fused kernels
-    on CUDA only; on the CPU they change nothing."""
-    monkeypatch.setenv('CPG_LDL_FUSED', '1')
-    monkeypatch.setenv('CPG_LDL_BM_FUSED', '1')
-    ipm._fused_opt_ins(torch.device('cpu'), ('CPG_LDL_FUSED',
-                                             'CPG_LDL_BM_FUSED'))
-    with pytest.raises(NotImplementedError, match='K9'):
-        ipm._fused_opt_ins(torch.device('cuda'), ('CPG_LDL_FUSED',))
-    with pytest.raises(NotImplementedError, match='K10'):
-        ipm._fused_opt_ins(torch.device('cuda'), ('CPG_LDL_BM_FUSED',))
+    """CPG_LDL_FUSED / CPG_LDL_BM_FUSED pick the fused kernels on CUDA only,
+    by the reference's precedence: FUSED (K9) over BM_FUSED (K10), BM_FUSED
+    ignored on the two-level route, both ignored with ldl_inverse=False
+    (K6 + K8); on the CPU they change nothing."""
+    import dataclasses
+    st = ipm.IPMSettings()
+    sweep = dataclasses.replace(st, ldl_inverse=False)
+    cpu, cuda = torch.device('cpu'), torch.device('cuda')
+    for fused in ('0', '1'):
+        for bm in ('0', '1'):
+            monkeypatch.setenv('CPG_LDL_FUSED', fused)
+            monkeypatch.setenv('CPG_LDL_BM_FUSED', bm)
+            for two_level in (False, True):
+                assert ipm._kinv_route(cpu, st, two_level) == 'k6k7'
+                assert ipm._kinv_route(cuda, sweep, two_level) == 'k6k7'
+            full = 'k9' if fused == '1' else 'k10' if bm == '1' else 'k6k7'
+            assert ipm._kinv_route(cuda, st, False) == full
+            assert ipm._kinv_route(cuda, st, True) == (
+                'k9' if fused == '1' else 'k6k7')
 
 
 def test_equality_only_family_matches_reference():
