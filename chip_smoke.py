@@ -27,16 +27,25 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. K3 against its plain version on MPC per-instance scaled data at B=256
    (15 iterations from a zero start and from a mid-solve state; x, z, y
    within 1e-4 * max(1, |v|_inf), the largest entry of the instance's
-   vector), then K3's time at B=2048, whose call is held to the same bar;
+   vector) in the resident layout (c = 2 thread blocks per instance, the
+   chosen c printed) and the streaming one (two instances per block), on
+   the portfolio batch (c = 1; held to max(1e-4, twice the spread one ulp
+   of q gives the plain version)), then K3's time at B=2048, whose call is
+   held to the same bar;
 5. K2 against its plain version on the same data with the settings of
    bench.py:312-314 (the bar of phase 2): at B=256 at the main path's block
-   (the TPU kernel's block rule: 8), at one instance per block and at block
-   32 (two instances per thread block), at B=2048 (the timed call, with
-   probes of where K2's time goes), and on
-   the portfolio batch of phase 6 with two refinement sweeps (block 16:
-   equal status, iterations and x held to twice the spread that one ulp of
-   q gives the plain version, since this ill-conditioned family's float32
-   iterates move with roundoff);
+   (the TPU kernel's block rule: 8; resident, c = 2), at one instance per
+   block, at block 16 and at block 32 (the streaming layout; two instances
+   per thread block), at B=2048 (the timed call, its x held to max(1e-3,
+   twice the plain version's own spread between the whole batch and block
+   by block), with probes of where K2's time goes and the factorization's
+   second yardstick over the TF32 tensor-core peak / 3), the certificate
+   ||I - M X|| after the cold sweeps (MPC and portfolio, max over the
+   instances) within twice that of float32 sweeps on the same inputs, and
+   the portfolio batch of phase 6 with two refinement sweeps (block 16,
+   resident, c = 1: equal status, iterations and x held to twice the
+   spread that one ulp of q gives the plain version, since this
+   ill-conditioned family's float32 iterates move with roundoff);
 6. the per-instance main path at full width: the same 2048 MPC instances
    through solve_batch(theta, shared_PA=False) with use_pallas='full' (K2)
    and 'auto' (K3 once per check interval) with 12 warm Newton-Schulz
@@ -69,7 +78,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    through make_compiled_solver(fam, 'ADMM') on 2048 x_init (K5), parity
    against the float64 oracle on 16; the per-instance engine on charging
    with gamma per instance at B=64, parity against the dense per-instance
-   float64 ADMM on 4; every instance solved; each kernel's launches are
+   float64 ADMM on 4; every instance solved; the largest segment of the
+   banded solvers' order-fixed segment sums (their gather tables); each
+   kernel's launches are
    those of one solve_batch at the bench's settings (the count set to 0
    just before it); where the time goes (each kernel's CUDA-event time
    inside one more solve);
@@ -118,8 +129,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    rho-scaled state, x, z, y within K11_TOL * max(1, |v|_inf) of its plain
    version and of the K4 route at the same fixed rho; K11's time, its plain
    version's, the K4 route's over the same 50 iterations and the bound;
-   whether K4, K11 and the float32 set-up give bitwise equal results
-   twice, and two eps-1e-4 solves' mean iterations;
+   K4, K11 and the float32 set-up (D_M, L_M, B0, B1, the CR factor) held
+   bitwise equal across two calls, and two eps-1e-4 solves to equal mean
+   iterations (the banded segment sums take no atomics);
 14. a JSON line with each kernel's launches, error, times and bound;
 15. the card's name and power limit (nvidia-smi), then the result line.
 
@@ -220,6 +232,9 @@ PARITY_BAR = 1e-2
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
 FP32_PEAK = 67e12
 HBM_RATE = 3.35e12
+# the same: dense TF32 on the tensor cores; K2's factorization takes three
+# TF32 passes per product, so its second yardstick divides this by 3
+TF32_PEAK = 495e12
 
 
 def check(cond, msg):
@@ -576,40 +591,81 @@ def k3_bound(n, m, B, n_iters):
             'operations' if t_ops >= t_bytes else 'bytes', ops, nbytes)
 
 
-def k3_errors(out, ref, label):
-    """Hold K3's (x, z, y) against the plain version's: per instance within
-    1e-4 * max(1, |v|_inf).  Returns the largest absolute difference."""
-    max_abs = 0.0
-    for name, o, r in zip('xzy', out, ref):
-        check(bool(torch.isfinite(o).all()), f'K3 {label}: non-finite {name}')
+def k3_viol(out, ref):
+    """Per (x, z, y): the largest absolute difference and the largest
+    per-instance max |d| / max(1, |v|_inf)."""
+    res = []
+    for o, r in zip(out, ref):
         err = (o - r).abs()
         scale = torch.clamp(r.abs().amax(dim=1, keepdim=True), min=1.0)
-        viol = float((err / scale).max())
-        max_abs = max(max_abs, float(err.max()))
-        print(f'# phase 4: K3 {label}, {name}: max |d| {float(err.max()):.3e},'
-              f' max |d| / max(1, |{name}|_inf) {viol:.3e}')
-        check(viol <= 1e-4, f'K3 {label} {name}: {viol:.3e} > 1e-4')
+        res.append((float(err.max()), float((err / scale).max())))
+    return res
+
+
+def k3_errors(out, ref, label, bar=1e-4):
+    """Hold K3's (x, z, y) against the plain version's: per instance within
+    bar * max(1, |v|_inf).  Returns the largest absolute difference."""
+    max_abs = 0.0
+    for name, o, (err, viol) in zip('xzy', out, k3_viol(out, ref)):
+        check(bool(torch.isfinite(o).all()), f'K3 {label}: non-finite {name}')
+        max_abs = max(max_abs, err)
+        print(f'# phase 4: K3 {label}, {name}: max |d| {err:.3e}, max |d| / '
+              f'max(1, |{name}|_inf) {viol:.3e} (bar {bar:.3e})')
+        check(viol <= bar, f'K3 {label} {name}: {viol:.3e} > {bar:.3e}')
     return max_abs
 
 
-def compare_k3(fam, prob, st, card):
+def compare_k3(fam, prob, st, card, portfolio):
     """K3 against its plain version at B=256 from a zero start and from a
-    mid-solve state, then K3's time at B=2048, where the timed call is held
-    against the plain version too."""
+    mid-solve state (the resident layout, c = 2, and the streaming layout
+    at two instances per block), on the portfolio batch (c = 1), then K3's
+    time at B=2048, where the timed call is held against the plain version
+    too."""
     from cvxpygen_tpu_torch.ops import admm_kernel as k3
-    from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
+    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings, full_f32_matmul
     n_it = st.check_interval
+    ctas = k3.pick_iterate_ctas(fam.m, fam.n)
+    print(f'# phase 4: K3 layout at n={fam.n}, m={fam.m}: c = {ctas} thread '
+          f'blocks per instance ({k3.iterate_smem_bytes(fam.n, fam.m, ctas)}'
+          f' bytes of shared memory each), '
+          f'{k3.max_clusters(fam.m, fam.n)} clusters in flight')
+    check(ctas == 2, f'K3 at the MPC shape: c = {ctas}, 2 expected')
     args = k3_inputs(per_instance_inputs(fam, prob, B_CMP, st), st)
     with full_f32_matmul():
         mid = k3.admm_iterate_plain(*args, st.sigma, st.alpha, 3 * n_it)
     max_abs = 0.0
     for start, state in (('zero start', args[6:]), ('mid-solve', mid)):
         a = args[:6] + list(state)
-        out = k3.admm_iterate(*a, st.sigma, st.alpha, n_it)
-        torch.cuda.synchronize()
         with full_f32_matmul():
             ref = k3.admm_iterate_plain(*a, st.sigma, st.alpha, n_it)
-        max_abs = max(max_abs, k3_errors(out, ref, f'B={B_CMP} {start}'))
+        for block, layout in ((None, f'resident c={ctas}'),
+                              (2, 'streaming, 2 per block')):
+            out = k3.admm_iterate(*a, st.sigma, st.alpha, n_it, block=block)
+            torch.cuda.synchronize()
+            max_abs = max(max_abs, k3_errors(
+                out, ref, f'B={B_CMP} {start} ({layout})'))
+    pfam, ptheta, _ = portfolio
+    pst = ADMMSettings(**PORTFOLIO_SETTINGS)
+    pargs = k3_inputs(per_instance_inputs(pfam, None, B_PORTFOLIO, pst,
+                                          theta=ptheta), pst)
+    pctas = k3.pick_iterate_ctas(pfam.m, pfam.n)
+    check(pctas == 1, f'K3 at the portfolio shape: c = {pctas}, 1 expected')
+    # this family is ill-conditioned (phase 5): the bar is twice the spread
+    # that one ulp of q gives the plain version, and at least 1e-4
+    ulp = list(pargs)
+    ulp[2] = pargs[2] * (1.0 + 2.0 ** -23)
+    with full_f32_matmul():
+        ref = k3.admm_iterate_plain(*pargs, pst.sigma, pst.alpha, n_it)
+        ref_ulp = k3.admm_iterate_plain(*ulp, pst.sigma, pst.alpha, n_it)
+    pbar = max(1e-4, 2 * max(v for _, v in k3_viol(ref_ulp, ref)))
+    for block, layout in ((None, f'resident c={pctas}'),
+                          (2, 'streaming, 2 per block')):
+        out = k3.admm_iterate(*pargs, pst.sigma, pst.alpha, n_it,
+                              block=block)
+        torch.cuda.synchronize()
+        max_abs = max(max_abs, k3_errors(
+            out, ref, f'portfolio B={B_PORTFOLIO} zero start ({layout})',
+            bar=pbar))
     args = k3_inputs(per_instance_inputs(fam, prob, B_MAIN, st), st)
     k3.admm_iterate(*args, st.sigma, st.alpha, n_it)          # warm
     ms, out = cuda_ms(lambda: k3.admm_iterate(*args, st.sigma, st.alpha,
@@ -619,9 +675,15 @@ def compare_k3(fam, prob, st, card):
             *args, st.sigma, st.alpha, n_it), 1)
     max_abs = max(max_abs, k3_errors(out, ref, f'B={B_MAIN} zero start'))
     bound_ms, bound_by, ops, nbytes = k3_bound(fam.n, fam.m, B_MAIN, n_it)
-    print(f'# phase 4: K3 at B={B_MAIN}, {n_it} iterations: kernel {ms:.3f} '
-          f'ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by};'
-          f' {ops / 1e9:.2f} GFLOP FP32, {nbytes / 1e9:.3f} GB) [{card}]')
+    print(f'# phase 4: K3 at B={B_MAIN}, {n_it} iterations (resident, c='
+          f'{ctas}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+          f'{bound_ms:.4f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP FP32, '
+          f'{nbytes / 1e9:.3f} GB) [{card}]')
+    # where K3's time goes: the copy of the rows into shared memory alone
+    copy_ms = cuda_ms(lambda: k3.admm_iterate(*args, st.sigma, st.alpha, 0),
+                      5)[0]
+    print(f'# phase 4: K3 probe, 0 iterations (the rows copied in, the '
+          f'vectors out): {copy_ms:.3f} ms [{card}]')
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -646,14 +708,16 @@ def k2_bound(n, m, B, iters, stats, st, block):
                         + n + 2 * m + 5)                    # outputs
     t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
     return (1e3 * max(t_ops, t_bytes),
-            'operations' if t_ops >= t_bytes else 'bytes', ops)
+            'operations' if t_ops >= t_bytes else 'bytes', ops,
+            2.0 * (cold + refactor + rescue))
 
 
-def k2_errors(out, ref, B, block, st, label, one_check=True):
+def k2_errors(out, ref, B, block, st, label, one_check=True, x_bar=1e-3):
     """Hold K2's result against the plain version's, the bar of phase 2:
-    equal status, x within 1e-3 * max(1, |x|) where the iterations agree,
-    at most 1% of instances at other iterations, with objectives within
-    1e-2, and with ``one_check`` those one check interval apart at most.
+    equal status, x within x_bar * max(1, |x|) where the iterations agree
+    (1e-3 unless the caller measured the plain version's own spread), at
+    most 1% of instances at other iterations, with objectives within 1e-2,
+    and with ``one_check`` those one check interval apart at most.
     Returns the largest absolute difference of x where the iterations
     agree."""
     x, obj, it, status = out[0], out[3], out[4], out[5]
@@ -671,7 +735,8 @@ def k2_errors(out, ref, B, block, st, label, one_check=True):
     same = it == it_ref
     err = (x - x_ref).abs()[same]
     viol = float((err / torch.clamp(x_ref[same].abs(), min=1.0)).max())
-    check(viol <= 1e-3, f'K2 {label}: max |dx| / max(1, |x|) = {viol:.3e}')
+    check(viol <= x_bar, f'K2 {label}: max |dx| / max(1, |x|) = {viol:.3e} '
+          f'> {x_bar:.3e}')
     n_diff = int((~same).sum())
     check(n_diff <= B // 100, f'K2 {label}: {n_diff} instances stop at '
           'other iterations')
@@ -703,13 +768,20 @@ def compare_k2(fam, prob, st, card, portfolio):
     kw = full_kernel_kwargs(st)
     main_block = k2.pick_full_block(B_MAIN, fam.m, fam.n)
     max_abs = 0.0
-    for block in (main_block, 1, 32):
+    for block in (main_block, 1, 16, 32):
         args = per_instance_inputs(fam, prob, B_CMP, st)
         out = k2.admm_solve_full(*args, **kw, block=block)
         torch.cuda.synchronize()
         with full_f32_matmul():
             ref = k2.admm_solve_full_plain(*args, **kw, block=block)
+        ctas = k2.full_layout(block, fam.m, fam.n)
+        print(f'# phase 5: K2 block {block} layout: ' + (
+            f'resident, c = {ctas} thread blocks per instance' if ctas
+            else 'streaming') + f', {k2.max_clusters(block, fam.m, fam.n)} '
+            'clusters in flight')
         max_abs = max(max_abs, k2_errors(out, ref, B_CMP, block, st, 'MPC'))
+    check(k2.full_layout(main_block, fam.m, fam.n) == 2,
+          'K2 at the MPC main block: the resident layout with c = 2 expected')
     args = per_instance_inputs(fam, prob, B_MAIN, st)
     k2.admm_solve_full(*args, **kw, block=main_block)           # warm
     ms, out = cuda_ms(lambda: k2.admm_solve_full(*args, **kw,
@@ -718,22 +790,29 @@ def compare_k2(fam, prob, st, card, portfolio):
     with full_f32_matmul():
         plain_ms, ref = cuda_ms(lambda: k2.admm_solve_full_plain(
             *args, **kw, block=main_block, stats=stats), 1)
+    x_bar = k2_block_spread(k2, args, kw, main_block, ref)
     max_abs = max(max_abs, k2_errors(out, ref, B_MAIN, main_block, st,
-                                     'MPC', one_check=False))
-    bound_ms, bound_by, ops = k2_bound(fam.n, fam.m, B_MAIN,
-                                       ref[4].cpu().numpy(), stats, st,
-                                       main_block)
+                                     'MPC', one_check=False, x_bar=x_bar))
+    bound_ms, bound_by, ops, factor_ops = k2_bound(
+        fam.n, fam.m, B_MAIN, ref[4].cpu().numpy(), stats, st, main_block)
     print(f'# phase 5: K2 at B={B_MAIN}: kernel {ms:.3f} ms, plain '
           f'{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; '
           f'{ops / 1e9:.2f} GFLOP FP32); mean iters '
           f'{float(out[4].float().mean()):.2f}; plain refactorizations '
           f'{stats["refactor_blocks"]}, rescues {stats["rescue_blocks"]} '
           f'[{card}]')
+    print(f'# phase 5: K2 second yardstick (not the bound): the '
+          f'factorization\'s {factor_ops / 1e9:.2f} GFLOP over the TF32 '
+          f'tensor-core peak / 3 ({TF32_PEAK / 3e12:.0f} TFLOP/s): '
+          f'{1e3 * factor_ops / (TF32_PEAK / 3):.4f} ms [{card}]')
+    cold_certificate(k2, args, kw, st, main_block, 'MPC', card)
     # where K2's time goes: the cold factorization and one check interval,
     # then the whole solve without adaptive rho
     probes = [('cold factor + one check, adaptive off',
                dict(kw, max_iter=st.check_interval, adaptive=False)),
-              ('adaptive rho off', dict(kw, adaptive=False))]
+              ('adaptive rho off', dict(kw, adaptive=False)),
+              ('adaptive rho off, no refinement sweep',
+               dict(kw, adaptive=False, kkt_refine=0))]
     for name, pkw in probes:
         res = k2.admm_solve_full(*args, **pkw, block=main_block)
         p_ms, _ = cuda_ms(lambda: k2.admm_solve_full(
@@ -745,6 +824,58 @@ def compare_k2(fam, prob, st, card, portfolio):
     portfolio_k2_vs_plain(portfolio, card)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def k2_block_spread(k2, args, kw, block, ref):
+    """The x bar of the B=2048 comparison: max(1e-3, twice the plain
+    version's own spread).  Blocks do not interact, so the plain version
+    run one block at a time computes the same function as on the whole
+    batch; only its batched float32 products (the library's summation
+    order depends on the batch size) differ.  At eps 1e-3 with adaptive
+    rho, a few instances whose rho decisions sit at their thresholds move
+    by more than 1e-3 between the two runs; the kernel, whose arithmetic
+    does not depend on the batch, is held to twice that spread."""
+    from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
+    B = args[0].shape[0]
+    with full_f32_matmul():
+        parts = [k2.admm_solve_full_plain(*[a[i:i + block] for a in args],
+                                          **kw, block=block)
+                 for i in range(0, B, block)]
+    blk = [torch.cat([p[k] for p in parts]) for k in range(len(parts[0]))]
+    n_other, spread = iterate_spread(blk, ref)
+    x_bar = max(1e-3, 2 * spread)
+    print(f'# phase 5: K2 plain version block by block against the whole '
+          f'batch, B={B}: {n_other} instances at other iterations, same '
+          f'iterations: max |dx|/max(1,|x|) {spread:.3e}; x bar {x_bar:.3e}')
+    return x_bar
+
+
+def cold_certificate(k2, args, kw, st, block, label, card):
+    """K2's certificate ||I - M X|| after the cold sweeps (max over the
+    instances) beside the float32 sweeps' on the same inputs
+    (torch.matmul at full float32 precision, no TF32); held to twice it."""
+    from cvxpygen_tpu_torch.ops.admm_full_kernel import (_form_M, _sweeps,
+                                                         ns_cert)
+    from cvxpygen_tpu_torch.solvers.admm import (_ns_diag_start,
+                                                 full_f32_matmul)
+    Ps, As, rho = args[0], args[2], args[5]
+    cert = torch.full((Ps.shape[0],), float('nan'), device=Ps.device)
+    k2.admm_solve_full(*args, **dict(kw, max_iter=st.check_interval),
+                       block=block, cold_cert=cert)
+    with full_f32_matmul():
+        M = _form_M(Ps, As, st.sigma, rho)
+        ref = ns_cert(M, _sweeps(M, _ns_diag_start(M), st.ns_iters,
+                                 torch.matmul))
+    kmax, rmax = float(cert.max()), float(ref.max())
+    print(f'# phase 5: K2 {label}: certificate ||I - M X|| after the cold '
+          f'sweeps, max over {Ps.shape[0]} instances: {kmax:.3e} (tensor '
+          f'cores, three-pass TF32) against {rmax:.3e} (float32 sweeps in '
+          f'torch.matmul); median {float(cert.median()):.3e} against '
+          f'{float(ref.median()):.3e} [{card}]')
+    check(bool(torch.isfinite(cert).all()), f'K2 {label}: certificate not '
+          'finite (or not written)')
+    check(kmax <= 2 * rmax, f'K2 {label}: certificate {kmax:.3e} > twice the '
+          f'float32 sweeps\' {rmax:.3e}')
 
 
 def iterate_spread(a, b):
@@ -773,6 +904,13 @@ def portfolio_k2_vs_plain(portfolio, card):
     pkw = full_kernel_kwargs(pst)
     pargs = per_instance_inputs(pfam, None, B_PORTFOLIO, pst, theta=ptheta)
     pblock = k2.pick_full_block(B_PORTFOLIO, pfam.m, pfam.n)
+    pctas = k2.full_layout(pblock, pfam.m, pfam.n)
+    print(f'# phase 5: K2 portfolio block {pblock} layout: resident, c = '
+          f'{pctas} thread blocks per instance, '
+          f'{k2.max_clusters(pblock, pfam.m, pfam.n)} clusters in flight')
+    check(pctas == 1, 'K2 at the portfolio block: the resident layout with '
+          'c = 1 expected')
+    cold_certificate(k2, pargs, pkw, pst, pblock, 'portfolio', card)
     out = k2.admm_solve_full(*pargs, **pkw, block=pblock)
     torch.cuda.synchronize()
     ulp_args = list(pargs)
@@ -816,11 +954,12 @@ def solve_and_gate(name, solver, theta, refs, counter, card, reps=3,
     obj = (out['obj'] + out['d']).double().cpu().numpy()
     max_rel, n_bad = parity(obj, refs)
     iters = out['iters'].float()
-    print(f'# phase 6: {name}, B={B}: frac_solved {frac}, mean iters '
-          f'{float(iters.mean()):.2f} (max {int(iters.max())}), '
-          f'{B / dt:.1f} solves/s, {1e3 * dt:.3f} ms per batch, launches '
-          f'{launches}; oracle parity on {len(refs)}: max rel {max_rel:.3e} '
-          f'({n_bad} non-finite) [{card}]')
+    n_unsolved = int(np.sum(out['status'].cpu().numpy() != 1))
+    print(f'# phase 6: {name}, B={B}: frac_solved {frac} ({n_unsolved} '
+          f'unsolved), mean iters {float(iters.mean()):.2f} (max '
+          f'{int(iters.max())}), {B / dt:.1f} solves/s, {1e3 * dt:.3f} ms '
+          f'per batch, launches {launches}; oracle parity on {len(refs)}: '
+          f'max rel {max_rel:.3e} ({n_bad} non-finite) [{card}]')
     check(launches > 0, f'{name}: the kernel was not launched')
     check(frac >= min_frac, f'{name}: frac_solved {frac} < {min_frac}')
     check(n_bad == 0 and max_rel <= PARITY_BAR,
@@ -1463,10 +1602,18 @@ def phase_banded(card, dev='cuda'):
     csolver = CompiledBandedQPSolver(cfam, settings=cst, device=dev)
     check(csolver.struct.nb > 96, f'charging nb {csolver.struct.nb}')
     ctheta = charging_batch(cfam, cprob, B_CHARGING)
+    ix = csolver.index
+    tables = {name: tuple(getattr(ix, name).shape) for name in (
+        'm_table', 'av_table', 'atv_table', 'pv_table')}
     print(f'# charging T={CHARGING_T}: n={cfam.n}, m={cfam.m}, '
           f's={csolver.struct.s}, nb={csolver.struct.nb}, '
           f'r_max={csolver.grouped.r_max}; set-up '
           f'{time.perf_counter() - t0:.1f} s')
+    print(f'# phase 9: segment-sum gather tables (segments, max_count): '
+          + ', '.join(f'{k} {v}' for k, v in tables.items())
+          + f'; largest max_count {max(v[1] for v in tables.values())} '
+          f'(nnz: A {len(ix.a_row)}, P {len(ix.p_row)}, M pairs '
+          f'{len(ix.slots)})')
     mprob = assign_mpc(mpc_problem(ct, H=30))
     mfam = canonicalize(mprob)
     mst = ADMMSettings(**MPC30_SETTINGS)
@@ -2295,9 +2442,9 @@ def phase_iterate(card, dev='cuda'):
     settings): the shared engine's set-up through the port's own functions,
     a mid-solve state from the K4 route, K11 for one check interval at
     kkt_refine 0 and 1 against its plain version and against the K4 route
-    at the same fixed rho; times and the bound; then whether K4, K11 and
-    the float32 set-up give bitwise equal results twice, and the mean
-    iterations of two eps-1e-4 solves (ROADMAP queue 3).  Returns K11's
+    at the same fixed rho; times and the bound; then K4, K11 and the
+    float32 set-up held bitwise equal across two calls, and two eps-1e-4
+    solves to equal mean iterations.  Returns K11's
     numbers and the launches of its two checked calls."""
     import cvxpygen_tpu_torch as ct
     from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
@@ -2404,7 +2551,7 @@ def phase_iterate(card, dev='cuda'):
           f'{bound_ms:.5f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP FP32, '
           f'{nbytes / 1e6:.1f} MB) [{card}]')
 
-    # determinism of the K4 route (ROADMAP queue 3)
+    # determinism of the K4 route and of its set-up
     g = torch.Generator(device=dev).manual_seed(1)
     b = torch.randn(tuple(x.shape), generator=g, device=dev, dtype=x.dtype)
     same_k4 = torch.equal(k45.cr_solve(fac, meta, b),
@@ -2429,6 +2576,11 @@ def phase_iterate(card, dev='cuda'):
           + f'; charging at eps {CHARGING_TIGHT_EPS:g} twice: mean iters '
           + ' and '.join(f'{v:.2f}' for v in means))
     check(same_k4 and same_k11, 'K4 or K11 is not deterministic')
+    check(all(same_setup.values()), 'the float32 banded set-up differs '
+          'between two calls: ' + ', '.join(
+              k for k, v in same_setup.items() if not v))
+    check(means[0] == means[1], f'two eps-{CHARGING_TIGHT_EPS:g} charging '
+          f'solves differ in mean iterations: {means}')
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None), launches
@@ -2493,7 +2645,7 @@ def main():
     fam = canonicalize(prob)
     st = ADMMSettings(**GENERAL_SETTINGS)
     portfolio = portfolio_batch()
-    k3_numbers = compare_k3(fam, prob, st, card)
+    k3_numbers = compare_k3(fam, prob, st, card, portfolio)
     k2_numbers = compare_k2(fam, prob, st, card, portfolio)
     k2_launches, k3_launches = phase_per_instance(fam, prob, refs, card,
                                                   portfolio)

@@ -26,12 +26,22 @@ Three pieces live here:
 - ``pick_full_block``: instances per block, by the TPU kernel's own rule.
   The rescue and the adaptive-rho refactorization act on a whole block, so
   the block changes the answer; both versions take it from here unless the
-  caller pins it.  On the card a block is a thread-block cluster of up to
-  16 thread blocks, one instance each (two at block 32).
+  caller pins it.  On the card a block is one thread-block cluster.
+- ``pick_full_ctas`` and ``full_layout``: the layout on the card.  Where
+  c x block <= 16 (Hopper's largest cluster), each instance's M^-1 and A
+  live in the shared memory of a team of c thread blocks between
+  factorizations (c = 2 at the MPC shape, 1 at the portfolio shape: both
+  main-path blocks fill a cluster of 16); elsewhere a cluster of
+  min(block, 16) thread blocks streams them from global memory every
+  iteration.
+- ``tf32x3_matmul``: the kernel's factorization product in torch (the
+  three-pass TF32 split), for the tests; the plain version takes it
+  through ``matmul=``.
 
-What bounds it on the card: operations, in the cold factorization (about
-0.75 GFLOP of float32 per instance at the MPC shape).  Design notes are in
-the CUDA source.  float32 only on the card.
+What bounds it on the card: operations, in the factorization (about 0.75
+GFLOP per instance at the MPC shape, on the tensor cores with the
+three-pass TF32 split); then the iterations' shared-memory reads.  Design
+notes are in the CUDA source.  float32 only on the card.
 """
 from __future__ import annotations
 
@@ -39,13 +49,19 @@ import ctypes
 
 import torch
 
-from ..solvers.admm import _ns_diag_start, _ns_sweeps, ns_residual_err
+from ..solvers.admm import _ns_diag_start
+from .admm_kernel import slice_words, team_rows
 from .build import checked, load_library
 
 _INF = 1e30
 _THREADS = 256
-_TILE_WORDS = 16 * (128 + 4) + 16 * 128
+# the tensor-core product's converted operands and raw cp.async ring
+# (csrc/mma_tf32.cuh, kWgWords)
+_MMA_WORDS = 2 * 2 * (128 * 8 + 112 * 8) + 3 * (128 * (16 + 4)
+                                                 + 16 * (112 + 8))
 _SCALARS = 9
+_STATS = 16
+_MAX_TEAM = 8
 # per-block dynamic shared memory limit on Hopper (232,448 bytes)
 _SMEM_LIMIT = 232448
 # Hopper's largest thread-block cluster (non-portable size)
@@ -55,11 +71,37 @@ _REF_BLOCK_BUDGET = 70 * 1024 * 1024
 _LIB = None
 
 
-def full_smem_bytes(per, n, m):
-    """Dynamic shared memory of a thread block of ``per`` instances
-    (csrc/admm_full.cu, ``smem_words``)."""
-    return 4 * (_TILE_WORDS + per * (3 * n + 6 * m + _SCALARS)
-                + 7 * n + 7 * m + _THREADS)
+def full_smem_bytes(per, n, m, ctas=0):
+    """Dynamic shared memory of one thread block (csrc/admm_full.cu): of
+    the streaming layout with ``per`` instances (``stream_words``) for
+    ``ctas`` 0, else of the resident layout in a team of ``ctas``
+    (``resident_words``)."""
+    if ctas == 0:
+        return 4 * (_MMA_WORDS + per * (3 * n + 6 * m + _SCALARS)
+                    + 7 * n + 7 * m + _THREADS)
+    rm = team_rows(m, ctas)
+    region = max(slice_words(team_rows(n, ctas), n) + slice_words(rm, n),
+                 _MMA_WORDS)
+    return 4 * (region + 12 * n + m + 12 * rm + _THREADS + _STATS
+                + _SCALARS)
+
+
+def pick_full_ctas(m, n):
+    """Thread blocks per instance in the resident layout: the smallest of
+    1, 2, 4, 8 whose blocks hold the instance's rows of M^-1 and A beside
+    its vectors; 0 when none does."""
+    for c in (1, 2, 4, _MAX_TEAM):
+        if full_smem_bytes(1, n, m, c) <= _SMEM_LIMIT:
+            return c
+    return 0
+
+
+def full_layout(block, m, n):
+    """Thread blocks per instance that the kernel takes for ``block``: the
+    resident team of ``pick_full_ctas`` where the block's teams fill at
+    most one cluster of 16, else 0 (the streaming layout)."""
+    c = pick_full_ctas(m, n)
+    return c if c and c * block <= _CLUSTER_MAX else 0
 
 
 def pick_full_block(B, m, n, dtype=torch.float32):
@@ -99,18 +141,50 @@ def _vm(v, W):
     return torch.matmul(v[:, None, :], W)[:, 0]
 
 
-def _form_M(Ps, As, sigma, rho):
+def _tf32(x):
+    """Round float32 to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` does: on the int32 view."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32x3_matmul(a, b):
+    """The kernel's factorization product in torch: the three-pass TF32
+    split a_lo b_hi + a_hi b_lo + a_hi b_hi (csrc/mma_tf32.cuh), each part
+    rounded to TF32, summed in float32.  float32 only."""
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError('tf32x3_matmul: float32 operands expected')
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ((torch.matmul(al, bh) + torch.matmul(ah, bl))
+            + torch.matmul(ah, bh))
+
+
+def _form_M(Ps, As, sigma, rho, mm=torch.matmul):
     n = Ps.shape[-1]
     eye = torch.eye(n, dtype=Ps.dtype, device=Ps.device)
-    return (Ps + sigma * eye) + torch.matmul(As.transpose(1, 2),
-                                             As * rho[:, :, None])
+    return (Ps + sigma * eye) + mm(As.transpose(1, 2), As * rho[:, :, None])
 
 
-def _rescue(M, X, block, ns_iters, stats):
+def _sweeps(M, X, iters, mm):
+    """Newton-Schulz sweeps X <- X (2I - M X) with the product ``mm``."""
+    I2 = 2.0 * torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    for _ in range(iters):
+        X = mm(X, I2 - mm(M, X))
+    return X
+
+
+def ns_cert(M, X, mm=torch.matmul):
+    """Per-instance ||I - M X||_inf (entrywise) with the product ``mm``;
+    NaN compares as 'not < threshold'."""
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    return torch.amax(torch.abs(eye - mm(M, X)), dim=(1, 2))
+
+
+def _rescue(M, X, block, ns_iters, stats, mm=torch.matmul):
     """The block's certificate rescue on whole blocks: where any instance
     has ||I - MX|| not below 0.05, its failing instances restart from the
     diagonal start and the whole block runs max(ns_iters, 30) sweeps."""
-    bad = ~(ns_residual_err(M, X) < 0.05)
+    bad = ~(ns_cert(M, X, mm) < 0.05)
     blk_bad = bad.reshape(-1, block).any(dim=1)
     if not bool(blk_bad.any()):
         return X
@@ -120,7 +194,7 @@ def _rescue(M, X, block, ns_iters, stats):
     Ms, Xs = M[ix], X[ix]
     Xs = torch.where(bad[ix][:, None, None], _ns_diag_start(Ms), Xs)
     X = X.clone()
-    X[ix] = _ns_sweeps(Ms, Xs, max(ns_iters, 30))
+    X[ix] = _sweeps(Ms, Xs, max(ns_iters, 30), mm)
     if stats is not None:
         stats['rescue_blocks'] = stats.get('rescue_blocks', 0) + len(sel)
     return X
@@ -130,7 +204,8 @@ def admm_solve_full_plain(Ps, qs, As, ls, us, rho_base, D, E, c_inv,
                           x0, z0, y0, *, sigma, alpha, eps_abs, eps_rel,
                           check_interval, max_iter, ns_iters, ns_f32_iters,
                           ns_adapt_iters, adaptive, rho_tol, kkt_refine=1,
-                          adapt_until=0, block=None, stats=None):
+                          adapt_until=0, block=None, stats=None,
+                          matmul=torch.matmul):
     """Kernel K2's arithmetic in torch, per block, vectorized over blocks.
 
     Scaled data in: Ps (B, n, n), As (B, m, n), qs/D/x0 (B, n),
@@ -138,7 +213,10 @@ def admm_solve_full_plain(Ps, qs, As, ls, us, rho_base, D, E, c_inv,
     iters, status, rp, rd) in the scaled space.  A block that is done takes
     no further part, as in the kernel.  A ``stats`` dict, when given,
     receives the number of block refactorizations (``'refactor_blocks'``)
-    and of block rescues (``'rescue_blocks'``)."""
+    and of block rescues (``'rescue_blocks'``).  ``matmul`` is the product
+    of the factorization (forming M, the Newton-Schulz sweeps, the
+    certificates and the warm rescale): ``torch.matmul`` by default, the
+    kernel's ``tf32x3_matmul`` in the tests."""
     B, m, n = As.shape
     dtype, dev = Ps.dtype, Ps.device
     block = _resolve_block(B, m, n, block, dtype)
@@ -156,10 +234,11 @@ def admm_solve_full_plain(Ps, qs, As, ls, us, rho_base, D, E, c_inv,
     u_open = us >= _INF * 0.5
     l_open = ls <= -_INF * 0.5
 
-    M = _form_M(Ps, As, sigma, rho_base)
-    Minv = _ns_sweeps(M, _ns_diag_start(M), ns_iters)
+    mm = matmul
+    M = _form_M(Ps, As, sigma, rho_base, mm)
+    Minv = _sweeps(M, _ns_diag_start(M), ns_iters, mm)
     if ns_iters > ns_f32_iters:
-        Minv = _rescue(M, Minv, block, ns_iters, stats)
+        Minv = _rescue(M, Minv, block, ns_iters, stats, mm)
 
     x, z, y = x0.clone(), z0.clone(), y0.clone()
     rho_scale = torch.ones((B,), dtype=dtype, device=dev)
@@ -268,14 +347,14 @@ def admm_solve_full_plain(Ps, qs, As, ls, us, rho_base, D, E, c_inv,
                 cb = bix[blk_change]
                 cx = (cb[:, None] * block + lanes).reshape(-1)
                 M2 = _form_M(Ps[cx], As[cx], sigma,
-                             rho_base[cx] * rho_scale[cx][:, None])
+                             rho_base[cx] * rho_scale[cx][:, None], mm)
                 X = Minv[cx]
-                ninf = torch.amax(torch.sum(torch.abs(torch.matmul(M2, X)),
-                                            dim=2), dim=1)
+                ninf = torch.amax(torch.sum(torch.abs(mm(M2, X)), dim=2),
+                                  dim=1)
                 X = X / torch.clamp(ninf, min=1.0)[:, None, None]
-                X = _ns_sweeps(M2, X, ns_adapt_iters)
+                X = _sweeps(M2, X, ns_adapt_iters, mm)
                 M[cx] = M2
-                Minv[cx] = _rescue(M2, X, block, ns_iters, stats)
+                Minv[cx] = _rescue(M2, X, block, ns_iters, stats, mm)
                 if stats is not None:
                     stats['refactor_blocks'] += len(cb)
 
@@ -293,7 +372,9 @@ def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.admm_full_solve_f32.restype = I
     lib.admm_full_solve_f32.argtypes = (
-        [P] * 22 + [I] * 4 + [F] * 5 + [I] * 8 + [P])
+        [P] * 22 + [I] * 5 + [F] * 5 + [I] * 8 + [P])
+    lib.admm_full_max_clusters.restype = I
+    lib.admm_full_max_clusters.argtypes = [I] * 4 + [P]
 
 
 def build_kernel(verbose=False):
@@ -304,15 +385,31 @@ def build_kernel(verbose=False):
     return secs
 
 
+def max_clusters(block, m, n):
+    """Clusters of the kernel that the card holds at once for ``block`` at
+    this shape (``cudaOccupancyMaxActiveClusters``); builds the kernel."""
+    build_kernel()
+    out = ctypes.c_int(0)
+    err = _LIB.admm_full_max_clusters(n, m, int(block),
+                                      full_layout(block, m, n),
+                                      ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f'admm_full_max_clusters: CUDA error {err}')
+    return out.value
+
+
 def admm_solve_full(Ps, qs, As, ls, us, rho_base, D, E, c_inv, x0, z0, y0,
                     *, sigma, alpha, eps_abs, eps_rel, check_interval,
                     max_iter, ns_iters, ns_f32_iters, ns_adapt_iters,
                     adaptive, rho_tol, kkt_refine=1, adapt_until=0,
-                    block=None):
+                    block=None, cold_cert=None):
     """Kernel K2 on scaled data (signature of ``admm_solve_full_pallas``
     with an explicit ``block``).  Returns (x, z, y, obj, iters, status, rp,
     rd) in the scaled space.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel (float32) or raise."""
+    tensors launch the kernel (float32) or raise.  ``cold_cert``, a (B,)
+    float32 tensor on the card, receives each instance's ||I - M X|| after
+    the cold sweeps where the kernel takes it (ns_iters > ns_f32_iters,
+    the rescue's gate); the plain version does not fill it."""
     kw = dict(sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
               check_interval=check_interval, max_iter=max_iter,
               ns_iters=ns_iters, ns_f32_iters=ns_f32_iters,
@@ -327,14 +424,21 @@ def admm_solve_full(Ps, qs, As, ls, us, rho_base, D, E, c_inv, x0, z0, y0,
     B, m, n = As.shape
     dev = qs.device
     block = _resolve_block(B, m, n, block, torch.float32)
-    # the block runs as one cluster of min(block, 16) thread blocks
+    # the block runs as one cluster: teams of ctas thread blocks per
+    # instance (resident), or min(block, 16) thread blocks (streaming)
+    ctas = full_layout(block, m, n)
     csize = min(block, _CLUSTER_MAX)
-    if block % csize or full_smem_bytes(block // csize, n, m) > _SMEM_LIMIT:
+    if ctas == 0 and (block % csize or block // csize > 2
+                      or full_smem_bytes(block // csize, n, m)
+                      > _SMEM_LIMIT):
         raise ValueError(f'full-solve kernel: block {block} at n={n}, m={m} '
                          'does not fit a cluster')
+    if cold_cert is not None:
+        checked(cold_cert, 'cold_cert', (B,), dev)
+        if not cold_cert.is_contiguous():
+            raise ValueError('cold_cert: a contiguous tensor expected')
     args = [checked(Ps, 'Ps', (B, n, n), dev),
             checked(As, 'As', (B, m, n), dev),
-            checked(As.transpose(1, 2).contiguous(), 'At', (B, n, m), dev),
             checked(qs, 'qs', (B, n), dev), checked(ls, 'ls', (B, m), dev),
             checked(us, 'us', (B, m), dev),
             checked(rho_base, 'rho_base', (B, m), dev),
@@ -355,12 +459,13 @@ def admm_solve_full(Ps, qs, As, ls, us, rho_base, D, E, c_inv, x0, z0, y0,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _LIB.admm_full_solve_f32(
-            *[t.data_ptr() for t in args + outs], scratch.data_ptr(),
-            B, n, m, int(block), float(sigma), float(alpha), float(eps_abs),
-            float(eps_rel), float(rho_tol), int(check_interval),
-            int(max_iter), int(ns_iters), int(ns_f32_iters),
-            int(ns_adapt_iters), int(bool(adaptive)), int(kkt_refine),
-            int(adapt_until), stream)
+            *[t.data_ptr() for t in args + outs],
+            None if cold_cert is None else cold_cert.data_ptr(),
+            scratch.data_ptr(), B, n, m, int(block), ctas, float(sigma),
+            float(alpha), float(eps_abs), float(eps_rel), float(rho_tol),
+            int(check_interval), int(max_iter), int(ns_iters),
+            int(ns_f32_iters), int(ns_adapt_iters), int(bool(adaptive)),
+            int(kkt_refine), int(adapt_until), stream)
     if err != 0:
         raise RuntimeError(f'admm_solve_full kernel launch failed: CUDA '
                            f'error {err}')

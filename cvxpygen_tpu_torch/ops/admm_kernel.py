@@ -19,13 +19,18 @@ Three pieces live here:
   ``admm_iterate_reference``).  The CPU tests hold it against the Pallas
   kernel in interpret mode, and ``chip_smoke.py`` holds the CUDA kernel
   against it.
-- ``pick_iterate_block``: instances per thread block on the card.
-  Instances do not interact, so the block does not change the answer.
+- ``pick_iterate_ctas`` and ``pick_iterate_block``: the layout on the
+  card.  An instance's M^-1 and A live in the shared memory of a cluster
+  of c thread blocks, c the smallest of 1, 2, 4, 8 that holds them (2 at
+  the MPC shape n=222, m=252; 1 at the portfolio shape n=130, m=172); at
+  larger shapes (c = 0) one block per ``block`` instances streams them
+  from global memory every iteration.  Instances do not interact, so the
+  layout does not change the answer.
 
-What bounds it on the card: bytes.  Each iteration does 2 m n + n^2
-multiply-adds on 4 (n^2 + m n) bytes of matrices, and this first design
-rereads M^-1 and A from global memory every iteration (see the note in the
-CUDA source).  float32 only on the card.
+What bounds it on the card: shared-memory bandwidth in the resident layout
+(each block reads its matrix rows once per iteration; device memory once
+per launch), bytes from global memory in the streaming one (see the note
+in the CUDA source).  float32 only on the card.
 """
 from __future__ import annotations
 
@@ -40,16 +45,48 @@ _SMEM_LIMIT = 232448
 _LIB = None
 
 
-def iterate_smem_bytes(n, m):
-    """Dynamic shared memory of one block (csrc/admm_iterate.cu,
-    ``smem_words``)."""
-    return 4 * (4 * n + 7 * m)
+_MAX_TEAM = 8
+
+
+def team_rows(d, c):
+    """Rows of d that the first block of a team of c holds
+    (csrc/resident.cuh, ``team_rows``)."""
+    return min(d, -(-d // c))
+
+
+def slice_words(rows, n):
+    """Shared-memory words of a resident slice (csrc/resident.cuh,
+    ``slice_words``)."""
+    return (rows * n + 6) // 4 * 4
+
+
+def iterate_smem_bytes(n, m, ctas=0):
+    """Dynamic shared memory of one block (csrc/admm_iterate.cu): the
+    streaming layout's vectors (``stream_words``) for ``ctas`` 0, else the
+    resident layout's rows of M^-1 and A beside its vectors
+    (``resident_words``)."""
+    if ctas == 0:
+        return 4 * (4 * n + 7 * m)
+    rm = team_rows(m, ctas)
+    return 4 * (slice_words(team_rows(n, ctas), n) + slice_words(rm, n)
+                + 5 * n + 7 * rm)
+
+
+def pick_iterate_ctas(m, n):
+    """Thread blocks per instance in the resident layout: the smallest of
+    1, 2, 4, 8 whose blocks hold the instance's rows of M^-1 and A in
+    shared memory; 0 (the streaming layout) when none does."""
+    for c in (1, 2, 4, _MAX_TEAM):
+        if iterate_smem_bytes(n, m, c) <= _SMEM_LIMIT:
+            return c
+    return 0
 
 
 def pick_iterate_block(B, m, n):
-    """Instances per thread block: 1 (one block per instance, the most
-    blocks in flight) when an instance's vectors fit shared memory, else
-    None."""
+    """Instances per thread block of the streaming layout: 1 (one block
+    per instance, the most blocks in flight) when an instance's vectors fit
+    shared memory, else None (no layout takes the shape).  The resident
+    layout always takes one instance per cluster."""
     return 1 if iterate_smem_bytes(n, m) <= _SMEM_LIMIT else None
 
 
@@ -73,7 +110,9 @@ def admm_iterate_plain(Minv, A, q, l, u, rho_vec, x, z, y, sigma, alpha,
 def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.admm_iterate_f32.restype = I
-    lib.admm_iterate_f32.argtypes = [P] * 12 + [I] * 4 + [F] * 2 + [I, P]
+    lib.admm_iterate_f32.argtypes = [P] * 12 + [I] * 5 + [F] * 2 + [I, P]
+    lib.admm_iterate_max_clusters.restype = I
+    lib.admm_iterate_max_clusters.argtypes = [I] * 3 + [P]
 
 
 def build_kernel(verbose=False):
@@ -84,11 +123,25 @@ def build_kernel(verbose=False):
     return secs
 
 
+def max_clusters(m, n):
+    """Clusters of the resident layout that the card holds at once at this
+    shape (``cudaOccupancyMaxActiveClusters``); builds the kernel."""
+    build_kernel()
+    out = ctypes.c_int(0)
+    err = _LIB.admm_iterate_max_clusters(n, m, pick_iterate_ctas(m, n),
+                                         ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f'admm_iterate_max_clusters: CUDA error {err}')
+    return out.value
+
+
 def admm_iterate(Minv, A, q, l, u, rho_vec, x, z, y, sigma, alpha, n_iters,
                  block=None):
     """Run ``n_iters`` fused ADMM iterations (signature of
     ``admm_iterate_pallas``).  CPU tensors run the plain version; CUDA
-    tensors launch the kernel (float32) or raise."""
+    tensors launch the kernel (float32) or raise.  ``block`` (instances per
+    thread block) applies to the streaming layout; the resident one takes
+    one instance per cluster and requires ``block`` 1 or None."""
     if x.device.type == 'cpu':
         return admm_iterate_plain(Minv, A, q, l, u, rho_vec, x, z, y, sigma,
                                   alpha, n_iters)
@@ -104,6 +157,7 @@ def admm_iterate(Minv, A, q, l, u, rho_vec, x, z, y, sigma, alpha, n_iters,
     if B % block:
         raise ValueError(f'fused iteration kernel: block {block} does not '
                          f'divide the batch {B}')
+    ctas = pick_iterate_ctas(m, n) if block == 1 else 0
     args = [checked(Minv, 'Minv', (B, n, n), dev),
             checked(A, 'A', (B, m, n), dev), checked(q, 'q', (B, n), dev),
             checked(l, 'l', (B, m), dev), checked(u, 'u', (B, m), dev),
@@ -118,7 +172,7 @@ def admm_iterate(Minv, A, q, l, u, rho_vec, x, z, y, sigma, alpha, n_iters,
     with torch.cuda.device(dev):
         err = _LIB.admm_iterate_f32(
             *[t.data_ptr() for t in args + outs], B, n, m, int(block),
-            float(sigma), float(alpha), int(n_iters), stream)
+            ctas, float(sigma), float(alpha), int(n_iters), stream)
     if err != 0:
         raise RuntimeError(f'admm_iterate kernel launch failed: CUDA error '
                            f'{err}')

@@ -111,6 +111,10 @@ def scatter_grouped(ga: GroupedA, avals, b0_pos=None, b1_pos=None):
     shape = (ga.nb, ga.r_max, ga.s)
     out = []
     for pos in (b0_pos, b1_pos):
+        # index_add_ takes atomics on CUDA, but no real slot receives two
+        # values (only the discarded last one does), so B0 and B1 repeat
+        # bitwise; the banded solvers' segment sums, where entries do
+        # collide, take the order-fixed _seg_sum of solvers/admm_banded.py
         flat = torch.zeros(size + 1, dtype=avals.dtype, device=avals.device)
         flat.index_add_(0, pos, avals)
         out.append(flat[:size].reshape(shape))

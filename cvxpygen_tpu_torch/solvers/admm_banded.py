@@ -13,9 +13,9 @@ O(n^2) iteration matvecs are prohibitive at n ~ 4000.
   storage (``BandedStructure``, ``analyze_banded``,
   ``build_banded_structure``).
 - ONLINE (torch): canonicalization emits only the nonzero values; matvecs
-  are gathers + ``index_add_`` segment sums, the banded M is one segment
-  sum over the precomputed pair slots, and the KKT solve is the block
-  cyclic reduction of ops/block_tridiag.py, per instance.
+  are gathers + segment sums, the banded M is one segment sum over the
+  precomputed pair slots, and the KKT solve is the block cyclic reduction
+  of ops/block_tridiag.py, per instance.
 
 ``admm_solve_banded`` is the per-instance engine (every instance has its
 own P and A values): the JAX package runs it as plain XLA, and the port as
@@ -23,9 +23,10 @@ plain torch; no hand-written kernel is on this path.  Batches that share P
 and A take solvers/admm_banded_shared.py (kernels K4 and K5).
 
 Math is that of solvers/admm.py (OSQP alg. 1-3 with Ruiz equilibration,
-per-row rho, residual termination, infeasibility certificates).  On CUDA
-the segment sums use atomics, whose order varies from run to run: float32
-results move by roundoff between runs.
+per-row rho, residual termination, infeasibility certificates).  Every
+segment sum reads a padded gather table (``seg_table``) and adds each
+segment's contributions in one fixed order, on every device: no atomics,
+so a float32 set-up or solve repeats bitwise from call to call.
 """
 from __future__ import annotations
 
@@ -201,23 +202,56 @@ class BandedIndex:
     pr_k2: Any
     pr_row: Any
     slots: Any            # [pr_slot, p_slot, diag_slot]: assemble_banded_M
+    # segment-sum gather tables (seg_table): M's slots, A x by row, A' y and
+    # P x by column of the padded space
+    m_table: Any = None
+    av_table: Any = None
+    atv_table: Any = None
+    pv_table: Any = None
     row_slot: Any = None  # grouped layout (shared path)
     b0_pos: Any = None
     b1_pos: Any = None
 
 
+def seg_table(ids, num):
+    """Gather table of an order-fixed segment sum over ``num`` segments:
+    (num, max_count) int64, row k the positions of the entries whose id is
+    k in ascending order (the order in which ``jax.ops.segment_sum`` adds
+    them on the CPU), padded with ``len(ids)``, the position of a zero
+    column appended to the values.  Entries with an id >= num are left
+    out.  max_count is the largest segment (at least 1); at the charging
+    family's T=1440 it is 7 for M's slots, 3 for A's rows, 5 for its
+    columns and 1 for P's rows."""
+    ids = np.asarray(ids, np.int64)
+    keep = np.nonzero(ids < num)[0]
+    order = np.argsort(ids[keep], kind='stable')
+    seg, pos = ids[keep][order], keep[order]
+    counts = np.bincount(seg, minlength=num)
+    starts = np.cumsum(counts) - counts
+    table = np.full((num, max(int(counts.max(initial=0)), 1)), len(ids),
+                    np.int64)
+    table[seg, np.arange(len(seg)) - starts[seg]] = pos
+    return table
+
+
 def banded_index(st: BandedStructure, device, ga=None) -> BandedIndex:
-    """Device index tensors of ``st`` (and of the grouped layout ``ga``)."""
+    """Device index tensors of ``st`` (and of the grouped layout ``ga``),
+    with the gather tables of its four segment sums."""
     def t(a):
         return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
     order = t(st.order)
+    slots = np.concatenate([st.pr_slot, st.p_slot, st.diag_slot])
     idx = BandedIndex(
         device=order.device, order=order, pos=t(st.pos),
         a_row=t(st.a_row), a_col=t(st.a_col), p_row=t(st.p_row),
         p_col=t(st.p_col), pr_k1=t(st.pr_k1), pr_k2=t(st.pr_k2),
-        pr_row=t(st.pr_row),
-        slots=t(np.concatenate([st.pr_slot, st.p_slot, st.diag_slot])))
+        pr_row=t(st.pr_row), slots=t(slots),
+        # the overflow slot n_slots (dropped P entries) is never read
+        m_table=t(seg_table(slots, st.n_slots)),
+        av_table=t(seg_table(st.a_row, st.m)),
+        atv_table=t(seg_table(st.a_col, st.n_pad)),
+        pv_table=t(seg_table(st.p_row, st.n_pad)))
     if ga is not None:
         from ..ops.banded_grouped import grouped_positions
         idx.row_slot = t(ga.row_slot)
@@ -238,11 +272,17 @@ def _resolve_index(st, index, device, ga=None):
 # online (torch) pieces
 # ---------------------------------------------------------------------------
 
-def _seg_sum(vals, ids, num):
-    """Batched segment sum: vals (B, K), ids (K,) -> (B, num)."""
-    out = torch.zeros((vals.shape[0], num), dtype=vals.dtype,
-                      device=vals.device)
-    return out.index_add_(1, ids, vals)
+def _seg_sum(vals, ids, num, table=None):
+    """Batched segment sum: vals (B, K), ids (K,) -> (B, num), each
+    segment's contributions added in one fixed order (no atomics), so the
+    result repeats bitwise on every device.  ``table`` is
+    ``seg_table(ids, num)`` on the values' device, built here when not
+    given."""
+    if table is None:
+        table = torch.as_tensor(
+            seg_table(torch.as_tensor(ids).cpu().numpy(), num),
+            device=vals.device)
+    return torch.nn.functional.pad(vals, (0, 1))[:, table].sum(dim=-1)
 
 
 def _seg_max(vals, ids, num):
@@ -263,7 +303,7 @@ def assemble_banded_M(st: BandedStructure, pvals, avals, rho, sigma, dtype,
              * rho[:, ix.pr_row])                      # (B, npairs)
     sig = torch.full((B, st.n_pad), sigma, dtype=dtype, device=avals.device)
     vals = torch.cat([pairs, pvals.to(dtype), sig], dim=1)
-    flat = _seg_sum(vals, ix.slots, st.n_slots + 1)[:, :st.n_slots]
+    flat = _seg_sum(vals, ix.slots, st.n_slots, ix.m_table)
     s, nb = st.s, st.nb
     D = flat[:, :nb * s * s].reshape(B, nb, s, s)
     L = flat[:, nb * s * s:].reshape(B, max(nb - 1, 0), s, s)
@@ -299,13 +339,13 @@ def _banded_impl(st, pvals, q, avals, l, u, n_eq, stg, x0, y0, ix):
     qp = torch.cat([q[:, ix.order], zeros(B, n_pad - n)], dim=1)
 
     def Av(x):                       # (B, n_pad) -> (B, m)
-        return _seg_sum(avals * x[:, a_col], a_row, m)
+        return _seg_sum(avals * x[:, a_col], a_row, m, ix.av_table)
 
     def Atv(y):                      # (B, m) -> (B, n_pad)
-        return _seg_sum(avals * y[:, a_row], a_col, n_pad)
+        return _seg_sum(avals * y[:, a_row], a_col, n_pad, ix.atv_table)
 
     def Pv(x):
-        return _seg_sum(pvals * x[:, p_col], p_row, n_pad)
+        return _seg_sum(pvals * x[:, p_col], p_row, n_pad, ix.pv_table)
 
     # ---- Ruiz equilibration on the sparse values (admm.ruiz_equilibrate
     # math on [[P, A'],[A, 0]] + cost scaling) ----

@@ -16,7 +16,9 @@ from cvxpygen_tpu.solvers import admm as admm_ref
 from cvxpygen_tpu_torch.ops import admm_kernel
 from cvxpygen_tpu_torch.ops.admm_kernel import (admm_iterate,
                                                 admm_iterate_plain,
-                                                pick_iterate_block)
+                                                iterate_smem_bytes,
+                                                pick_iterate_block,
+                                                pick_iterate_ctas)
 from cvxpygen_tpu_torch.solvers import admm
 
 
@@ -60,6 +62,23 @@ def test_wrapper_runs_plain_on_cpu():
 
 def test_block_rule():
     assert pick_iterate_block(2048, 252, 222) == 1
+    assert pick_iterate_block(8, 40000, 40000) is None
+
+
+def test_layout_picker():
+    """Thread blocks per instance in the resident layout: 2 at the MPC
+    shape (n=222, m=252), 1 at the portfolio shape (n=130, m=172); shapes
+    where a team of 8 cannot hold the rows take the streaming layout (0)
+    while their vectors fit, and no layout where even those do not."""
+    limit = 232448
+    assert pick_iterate_ctas(252, 222) == 2
+    assert iterate_smem_bytes(222, 252, 1) > limit
+    assert iterate_smem_bytes(222, 252, 2) <= limit
+    assert pick_iterate_ctas(172, 130) == 1
+    assert pick_iterate_ctas(700, 600) == 0
+    assert iterate_smem_bytes(600, 700, 8) > limit
+    assert pick_iterate_block(64, 700, 600) == 1
+    assert pick_iterate_ctas(40000, 40000) == 0
     assert pick_iterate_block(8, 40000, 40000) is None
 
 

@@ -15,9 +15,15 @@ from cvxpygen_tpu.ops.admm_full_kernel import admm_solve_full_pallas
 from cvxpygen_tpu.ops.admm_full_kernel import \
     pick_full_block as pick_full_block_ref
 from cvxpygen_tpu.solvers import admm as admm_ref
-from cvxpygen_tpu_torch.ops.admm_full_kernel import (admm_solve_full,
+from cvxpygen_tpu_torch.ops.admm_full_kernel import (_sweeps,
+                                                     admm_solve_full,
                                                      admm_solve_full_plain,
-                                                     pick_full_block)
+                                                     full_layout,
+                                                     full_smem_bytes,
+                                                     ns_cert,
+                                                     pick_full_block,
+                                                     pick_full_ctas,
+                                                     tf32x3_matmul)
 from cvxpygen_tpu_torch.solvers import admm
 
 
@@ -223,3 +229,107 @@ def test_float32_portfolio_block_one_stalls_in_reference_too():
         if refine == 1:
             assert np.asarray(ref[4])[:4].tolist() == [3990] * 4
             assert out[4][:4].tolist() == [3990] * 4
+
+
+def test_layout_picker():
+    """The resident layout's team: 2 thread blocks per instance at the MPC
+    shape, 1 at the portfolio shape, so both main-path blocks (8 and 16)
+    fill one cluster of 16; block 32, and shapes no team of 8 holds, take
+    the streaming layout (0)."""
+    limit = 232448
+    assert pick_full_ctas(252, 222) == 2
+    assert full_smem_bytes(1, 222, 252, 1) > limit
+    assert full_smem_bytes(1, 222, 252, 2) <= limit
+    assert pick_full_ctas(172, 130) == 1
+    assert [full_layout(b, 252, 222) for b in (1, 8, 16, 32)] == [2, 2, 0, 0]
+    assert [full_layout(b, 172, 130) for b in (1, 16, 32)] == [1, 1, 0]
+    assert pick_full_ctas(700, 600) == 0 and full_layout(4, 700, 600) == 0
+    assert full_smem_bytes(2, 222, 252) <= limit
+
+
+def test_tf32_rounding():
+    """TF32 keeps 10 mantissa bits, rounding to nearest with ties away
+    from zero (cvt.rna), and the split a = hi + lo is exact."""
+    from cvxpygen_tpu_torch.ops.admm_full_kernel import _tf32
+    x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12,
+                      1 + 3 * 2.0 ** -11], dtype=torch.float32)
+    assert _tf32(x).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0,
+                                 1 + 2.0 ** -9]
+    a = torch.tensor(np.random.default_rng(0).standard_normal((64,)),
+                     dtype=torch.float32)
+    hi = _tf32(a)
+    assert torch.equal(hi + (a - hi), a)
+    lo_bits = _tf32(a - hi).view(torch.int32) & 0x1FFF
+    assert not lo_bits.any()
+
+
+def _mpc_M(B=4):
+    """The MPC family's M = P + sigma I + A' diag(rho) A (n=222, m=252) in
+    float32 on the CPU, from the seed of the existing tests, at B distinct
+    x_init ~ U(-2, 2) (bench.py:132-136)."""
+    from test_torch_solver import _problems_torch
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.runtime.torch_family import (TorchFamily,
+                                                         canon_batch,
+                                                         qp_bounds_batch)
+    pt = _problems_torch()
+    prob = pt.assign_MPC(pt.MPC_problem(), seed=0)
+    fam = canonicalize(prob)
+    theta = np.tile(fam.pack_theta(params=prob.parameters()), (B, 1))
+    xi = [pi for pi in fam.param_info if pi.name == 'x_init'][0]
+    theta[:, xi.offset:xi.offset + xi.flat_size] = np.random.default_rng(
+        0).uniform(-2.0, 2.0, (B, xi.flat_size))
+    tf = TorchFamily.from_family(fam, dtype=torch.float32, device='cpu')
+    data = canon_batch(tf, theta)
+    l, u = qp_bounds_batch(tf, data['b'])
+    st = admm.ADMMSettings()
+    Ps, _, As, _, _, rho, *_ = admm.full_kernel_args(
+        data['P'], data['q'], data['A'], l, u, tf.n_zero, st)
+    n = Ps.shape[-1]
+    assert (n, As.shape[1]) == (222, 252) and Ps.dtype == torch.float32
+    return (Ps + st.sigma * torch.eye(n)) + torch.matmul(
+        As.transpose(1, 2), As * rho[:, :, None])
+
+
+def test_tf32x3_certificate_within_twice_float32():
+    """The kernel's factorization product (three-pass TF32 split) in the
+    16 cold Newton-Schulz sweeps on the MPC M: its certificate ||I - M X||
+    stays within twice that of float32 sweeps, while one TF32 pass does
+    not come near."""
+    from cvxpygen_tpu_torch.solvers.admm import _ns_diag_start
+    M = _mpc_M()
+    X0 = _ns_diag_start(M)
+    c32 = ns_cert(M, _sweeps(M, X0, 16, torch.matmul))
+    c3 = ns_cert(M, _sweeps(M, X0, 16, tf32x3_matmul), tf32x3_matmul)
+    c3_f32 = ns_cert(M, _sweeps(M, X0, 16, tf32x3_matmul))
+    assert float(c32.max()) < 1e-4
+    assert float(c3.max()) <= 2 * float(c32.max())
+    assert float(c3_f32.max()) <= 2 * float(c32.max())
+
+    def tf32_once(a, b):
+        from cvxpygen_tpu_torch.ops.admm_full_kernel import _tf32
+        return torch.matmul(_tf32(a), _tf32(b))
+
+    c1 = ns_cert(M, _sweeps(M, X0, 16, tf32_once))
+    assert float(c1.max()) > 100 * float(c32.max())
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_tf32x3_plain_matches_interpret_kernel(seed):
+    """The plain version with the kernel's three-pass TF32 product in its
+    factorization, in float32, against the Pallas kernel in interpret mode
+    on the same float32 data: the same status and iterations, at eps 1e-3
+    with adaptive rho off.  Tighter, or with adaptive rho on, float32
+    roundoff alone moves this family's iterations: the plain version at
+    full float32 then differs from the reference too, and so does the
+    reference from itself with the host's thread count."""
+    args = [np.asarray(a, np.float32) for a in _scaled_inputs(seed=seed)]
+    kw = dict(_kernel_kw(40, adaptive=False), eps_abs=1e-3, eps_rel=1e-3)
+    ref = admm_solve_full_pallas(*[jnp.asarray(a) for a in args], **kw,
+                                 block=2, interpret=True)
+    out = admm_solve_full_plain(*[torch.tensor(a) for a in args], **kw,
+                                block=2, matmul=tf32x3_matmul)
+    assert out[0].dtype == torch.float32
+    assert np.all(out[5].numpy() == 1)
+    assert np.array_equal(np.asarray(ref[5]), out[5].numpy())
+    assert np.array_equal(np.asarray(ref[4]), out[4].numpy())
