@@ -50,6 +50,8 @@
 //    memory), and only the refinement's M x~ and the checks' P x stream
 //    from global memory (M stays in L2: per instance 197 KB at the MPC
 //    shape, against 1.04 MB per iteration read by the streaming layout).
+//    The refinement's other form, (P + sigma I) x~ + A' (rho A x~) from P
+//    and the resident A, was not built: which is faster is not measured.
 //    What bounds it now: shared-memory bandwidth and the team barriers
 //    (two per iteration, two more per refinement sweep).  The tile buffers
 //    of the factorization alias the matrix region, which is free while a
@@ -1108,35 +1110,6 @@ cudaError_t launch(K kernel, const Params& p, int grid, int csize,
 }
 
 }  // namespace
-
-// Thread-block clusters of K2 that the card holds at once for this layout
-// (cudaOccupancyMaxActiveClusters) into *out; returns the CUDA error code.
-extern "C" int admm_full_max_clusters(int n, int m, int blk, int ctas,
-                                      int* out) {
-  const bool res = ctas > 0;
-  const int csize = res ? ctas * blk : (blk < kClusterMax ? blk : kClusterMax);
-  const size_t smem = res ? 4 * resident_words(n, m, ctas)
-                          : 4 * stream_words(blk / csize, n, m);
-  auto kernel = res ? full_resident_kernel : full_stream_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && csize > 8)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(csize * 64);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = csize;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
-}
 
 // Launches kernel K2 on `stream`; returns the CUDA error code (0 = success).
 // ctas 1, 2, 4 or 8 with ctas * blk <= 16 takes the resident layout (one

@@ -239,29 +239,6 @@ __global__ void __launch_bounds__(kThreads) iterate_stream_kernel(
 
 }  // namespace
 
-// Thread-block clusters of the resident layout that the card holds at once
-// (cudaOccupancyMaxActiveClusters) into *out; returns the CUDA error code.
-extern "C" int admm_iterate_max_clusters(int n, int m, int ctas, int* out) {
-  const size_t smem = 4 * resident_words(n, m, ctas);
-  cudaError_t err = cudaFuncSetAttribute(
-      iterate_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas * 64);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(out, iterate_resident_kernel,
-                                             &cfg);
-}
-
 // Launches kernel K3 on `stream`; returns the CUDA error code (0 = success).
 // ctas 1, 2, 4 or 8 takes the resident layout (one cluster of ctas blocks
 // per instance; blk must be 1), ctas 0 the streaming one (blk instances

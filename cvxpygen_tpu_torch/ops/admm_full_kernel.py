@@ -373,8 +373,6 @@ def _bind(lib):
     lib.admm_full_solve_f32.restype = I
     lib.admm_full_solve_f32.argtypes = (
         [P] * 22 + [I] * 5 + [F] * 5 + [I] * 8 + [P])
-    lib.admm_full_max_clusters.restype = I
-    lib.admm_full_max_clusters.argtypes = [I] * 4 + [P]
 
 
 def build_kernel(verbose=False):
@@ -383,19 +381,6 @@ def build_kernel(verbose=False):
     global _LIB
     _LIB, secs = load_library('admm_full', _bind, verbose=verbose)
     return secs
-
-
-def max_clusters(block, m, n):
-    """Clusters of the kernel that the card holds at once for ``block`` at
-    this shape (``cudaOccupancyMaxActiveClusters``); builds the kernel."""
-    build_kernel()
-    out = ctypes.c_int(0)
-    err = _LIB.admm_full_max_clusters(n, m, int(block),
-                                      full_layout(block, m, n),
-                                      ctypes.byref(out))
-    if err != 0:
-        raise RuntimeError(f'admm_full_max_clusters: CUDA error {err}')
-    return out.value
 
 
 def admm_solve_full(Ps, qs, As, ls, us, rho_base, D, E, c_inv, x0, z0, y0,

@@ -23,9 +23,10 @@ Three pieces live here:
   card.  An instance's M^-1 and A live in the shared memory of a cluster
   of c thread blocks, c the smallest of 1, 2, 4, 8 that holds them (2 at
   the MPC shape n=222, m=252; 1 at the portfolio shape n=130, m=172); at
-  larger shapes (c = 0) one block per ``block`` instances streams them
-  from global memory every iteration.  Instances do not interact, so the
-  layout does not change the answer.
+  larger shapes (c = 0) one block per instance streams them from global
+  memory every iteration.  The shape alone picks the layout (``block`` > 1
+  reaches the streaming one for tests).  Instances do not interact, so
+  the layout does not change the answer.
 
 What bounds it on the card: shared-memory bandwidth in the resident layout
 (each block reads its matrix rows once per iteration; device memory once
@@ -111,8 +112,6 @@ def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.admm_iterate_f32.restype = I
     lib.admm_iterate_f32.argtypes = [P] * 12 + [I] * 5 + [F] * 2 + [I, P]
-    lib.admm_iterate_max_clusters.restype = I
-    lib.admm_iterate_max_clusters.argtypes = [I] * 3 + [P]
 
 
 def build_kernel(verbose=False):
@@ -123,25 +122,16 @@ def build_kernel(verbose=False):
     return secs
 
 
-def max_clusters(m, n):
-    """Clusters of the resident layout that the card holds at once at this
-    shape (``cudaOccupancyMaxActiveClusters``); builds the kernel."""
-    build_kernel()
-    out = ctypes.c_int(0)
-    err = _LIB.admm_iterate_max_clusters(n, m, pick_iterate_ctas(m, n),
-                                         ctypes.byref(out))
-    if err != 0:
-        raise RuntimeError(f'admm_iterate_max_clusters: CUDA error {err}')
-    return out.value
-
-
 def admm_iterate(Minv, A, q, l, u, rho_vec, x, z, y, sigma, alpha, n_iters,
                  block=None):
     """Run ``n_iters`` fused ADMM iterations (signature of
     ``admm_iterate_pallas``).  CPU tensors run the plain version; CUDA
-    tensors launch the kernel (float32) or raise.  ``block`` (instances per
-    thread block) applies to the streaming layout; the resident one takes
-    one instance per cluster and requires ``block`` 1 or None."""
+    tensors launch the kernel (float32) or raise.  With ``block`` None or 1
+    (what the solver passes) the shape alone picks the layout: resident
+    where ``pick_iterate_ctas`` finds a c, else streaming at one instance
+    per thread block.  ``block`` > 1 (instances per thread block) exists
+    only so that tests can reach the streaming layout at shapes where the
+    resident one fits."""
     if x.device.type == 'cpu':
         return admm_iterate_plain(Minv, A, q, l, u, rho_vec, x, z, y, sigma,
                                   alpha, n_iters)
