@@ -14,16 +14,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    (csrc/banded_iterate.cu), one nvcc for sm_90a each, all started
    together, and identify the card;
 2. K1 against its plain torch version on the card, on the scaled MPC data
-   (n=222, m=252) that the shared main path hands it, at B=256 and at the
-   main path's B=2048, float32, adaptive rho on, the same chunk for both:
-   same status, iterations within one check interval, x within
+   (n=222, m=252) that the shared main path hands it, at B=256 (the rho
+   group of the rule, 256, and a pinned chunk 8) and at the main path's
+   B=2048 (rho group 1024), float32, adaptive rho on, the same chunk for
+   both: same status, iterations within one check interval, x within
    1e-3 * max(1, |x|) where the iterations agree (at most 1% may stop one
-   check apart, with objectives within 1e-2); kernel and plain times;
+   check apart, with objectives within 1e-2); a second call bitwise equal
+   to the first (the order-fixed chunk reductions); at B=2048 the card's
+   layouts (16 and 8 instances per block on SIMT products, bitwise equal;
+   16 on three-pass TF32 mma.sync), each at the same bars and timed;
+   kernel and plain times, device launches per call, and probes;
 3. the shared main path at full width: MPC H=10 through generate_code ->
-   solve(method='CPG'), then CompiledQPSolver.solve_batch on 2048 distinct
-   x_init with the settings of bench.py:142-152; K1 must have been launched,
-   every instance solved, and the objective within 1e-2 of the float64
-   oracle on 128 instances;
+   solve(method='CPG') (B=1 has no rho group: the torch loop, as in the JAX
+   package; first call and the mean of five more), then
+   CompiledQPSolver.solve_batch on 2048 distinct x_init with the settings
+   of bench.py:142-152; K1 must have been launched, every instance solved,
+   and the objective within 1e-2 of the float64 oracle on 128 instances;
 4. K3 against its plain version on MPC per-instance scaled data at B=256
    (15 iterations from a zero start and from a mid-solve state; x, z, y
    within 1e-4 * max(1, |v|_inf), the largest entry of the instance's
@@ -228,6 +234,8 @@ K5_TOL = 1e-4
 K5_FLAG_BAND = 1e-5
 B_MAIN = 2048
 B_CMP = 256
+# K1 also at a pinned chunk: the rho group of the port's first rule
+K1_PINNED_CHUNK = 8
 B_PORTFOLIO = 512
 B_K3_SLICE = 512
 N_ORACLE = 128
@@ -377,29 +385,100 @@ def k1_inputs(fam, theta, st, dev):
                               tf.n_zero, st)
 
 
-def compare_k1(fam, prob, B, st, card, timed):
-    """K1 and its plain version on the same scaled MPC data; returns the
-    error and, when ``timed``, the times and the bound."""
+def compare_k1(fam, prob, B, st, card, timed, chunk=None):
+    """K1 and its plain version on the same scaled MPC data, at ``chunk``
+    (default: the rule's rho group); returns the error and, when ``timed``,
+    the times and the bound."""
     from cvxpygen_tpu_torch.ops import admm_shared_kernel as k1
     from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
     from cvxpygen_tpu_torch.solvers.admm_shared import kernel_kwargs
     args = k1_inputs(fam, x_init_batch(fam, prob, B), st, 'cuda')
-    kw = dict(kernel_kwargs(st), chunk=k1.pick_shared_chunk(B, fam.m, fam.n))
-    out = k1.admm_shared_solve(*args, **kw)
-    torch.cuda.synchronize()
+    if chunk is None:
+        chunk = k1.pick_shared_chunk(B, fam.m, fam.n)
+    kw = dict(kernel_kwargs(st), chunk=chunk)
     stats = {}
     with full_f32_matmul():
         ref = k1.admm_shared_solve_plain(*args, **kw, stats=stats)
     torch.cuda.synchronize()
+    out = k1.admm_shared_solve(*args, **kw)
+    torch.cuda.synchronize()
+    max_abs = k1_errors(out, ref, args, B, chunk, st, stats, 'default')
+    # the order-fixed chunk reductions: a second call gives the same bits
+    again = k1.admm_shared_solve(*args, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          f'B={B} chunk={chunk}: two calls of K1 on one input differ')
+    print(f'# phase 2: B={B} chunk={chunk}: a second call is bitwise equal')
+    if not timed:
+        return dict(max_abs_err=max_abs)
+    it_ref = ref[3]
+    # the card's layout choices (not part of the answer), each held to the
+    # plain version: 16 and 8 instances per block on SIMT float32 products
+    # also give the same bits (each row sums in k order either way); 16 per
+    # block on the tensor cores takes three TF32 passes
+    layouts = (('16 per block, SIMT', dict(cta_rows=16)),
+               ('8 per block, SIMT', dict(cta_rows=8)),
+               ('16 per block, tf32x3', dict(cta_rows=16, tf32x3=True)))
+    simt = None
+    for name, lkw in layouts:
+        res = k1.admm_shared_solve(*args, **kw, **lkw)
+        torch.cuda.synchronize()
+        k1_errors(res, ref, args, B, chunk, st, stats, name)
+        if not lkw.get('tf32x3'):
+            simt = simt or res
+            check(all(torch.equal(a, b) for a, b in zip(simt, res)),
+                  f'B={B}: K1 with {name} differs from 16 per block')
+        l_ms, _ = cuda_ms(lambda: k1.admm_shared_solve(*args, **kw, **lkw), 3)
+        print(f'# phase 2: K1 layout {name}: {l_ms:.3f} ms, '
+              f'{k1.admm_shared_solve.device_launches} device launches per '
+              f'call [{card}]')
+    k1.admm_shared_solve(*args, **kw)            # warm
+    ms, _ = cuda_ms(lambda: k1.admm_shared_solve(*args, **kw), 3)
+    launches = k1.admm_shared_solve.device_launches
+    with full_f32_matmul():
+        plain_ms, _ = cuda_ms(
+            lambda: k1.admm_shared_solve_plain(*args, **kw), 1)
+    bound_ms, bound_by, ops = k1_bound(fam.n, fam.m, B, it_ref.cpu().numpy(),
+                                       stats['refactors'], st)
+    print(f'# phase 2: K1 at B={B} chunk={chunk}: kernel {ms:.3f} ms '
+          f'({launches} device launches per call), plain {plain_ms:.3f} ms, '
+          f'bound {bound_ms:.4f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP FP32; '
+          f'{stats["refactors"]} chunk refactorizations) [{card}]')
+    # where K1's time goes: the same batch without adaptive rho (no
+    # refactorization), and two check intervals without and with a forced
+    # refactorization of every chunk between them (rho_tol just above 1; a
+    # chunk that stops does not refactor)
+    probes = [('adaptive rho off', dict(kw, adaptive=False)),
+              ('two checks, no refactor',
+               dict(kw, max_iter=2 * st.check_interval, adaptive=False)),
+              ('two checks + one refactor per chunk',
+               dict(kw, max_iter=2 * st.check_interval,
+                    rho_tol=1.0 + 1e-6))]
+    for name, pkw in probes:
+        res = k1.admm_shared_solve(*args, **pkw)
+        p_ms, _ = cuda_ms(lambda: k1.admm_shared_solve(*args, **pkw), 3)
+        print(f'# phase 2: K1 probe, {name}: {p_ms:.3f} ms, '
+              f'{k1.admm_shared_solve.device_launches} device launches, mean '
+              f'iters {float(res[3].float().mean()):.2f} [{card}]')
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def k1_errors(out, ref, args, B, chunk, st, stats, label):
+    """Hold K1's result against the plain version's: equal status,
+    iterations within one check interval, x within 1e-3 * max(1, |x|) where
+    the iterations agree, at most 1% of the instances one check apart with
+    objectives within the parity bar.  Returns max |dx|."""
     x, it, status = out[0], out[3], out[4]
     x_ref, it_ref, status_ref = ref[0], ref[3], ref[4]
     check(bool(torch.isfinite(x).all()), f'B={B}: non-finite kernel x')
     check(torch.equal(status, status_ref),
-          f'B={B}: kernel status differs from the plain version on '
+          f'B={B} {label}: kernel status differs from the plain version on '
           f'{int((status != status_ref).sum())} instances')
     d_it = int((it - it_ref).abs().max())
     check(d_it <= st.check_interval,
-          f'B={B}: iterations differ by {d_it} > {st.check_interval}')
+          f'B={B} {label}: iterations differ by {d_it} > '
+          f'{st.check_interval}')
     # x is held at 1e-3 where both stopped at the same iteration.  Where
     # summation order moved a convergence check by one interval, the two
     # are converged iterates check_interval iterations apart: those must be
@@ -408,10 +487,11 @@ def compare_k1(fam, prob, B, st, card, timed):
     err = (x - x_ref).abs()[same]
     viol = float((err / torch.clamp(x_ref[same].abs(), min=1.0)).max())
     max_abs = float(err.max())
-    check(viol <= 1e-3, f'B={B}: max |dx| / max(1, |x|) = {viol:.3e} > 1e-3')
+    check(viol <= 1e-3, f'B={B} {label}: max |dx| / max(1, |x|) = '
+          f'{viol:.3e} > 1e-3')
     n_diff = int((~same).sum())
-    check(n_diff <= B // 100, f'B={B}: {n_diff} instances stop at another '
-          'iteration')
+    check(n_diff <= B // 100, f'B={B} {label}: {n_diff} instances stop at '
+          'another iteration')
     obj_rel = 0.0
     if n_diff:
         Ps, qs, c_inv = args[0], args[1], args[8]
@@ -422,41 +502,17 @@ def compare_k1(fam, prob, B, st, card, timed):
         o, o_ref = obj(x[~same]), obj(x_ref[~same])
         obj_rel = float(((o - o_ref).abs()
                          / torch.clamp(o_ref.abs(), min=1.0)).max())
-        check(obj_rel <= PARITY_BAR, f'B={B}: objective differs by {obj_rel}')
-    line = (f'# phase 2: B={B} chunk={kw["chunk"]}: status equal, max |d iters|'
-            f' {d_it}, mean iters {float(it.float().mean()):.2f} (plain '
-            f'{float(it_ref.float().mean()):.2f}); same iterations: max |dx| '
-            f'{max_abs:.3e} (max |dx|/max(1,|x|) {viol:.3e}); {n_diff} '
-            f'instances one check apart, objective rel {obj_rel:.2e}; plain '
-            f'refactorizations {stats["refactors"]}')
-    print(line)
-    if not timed:
-        return dict(max_abs_err=max_abs)
-    k1.admm_shared_solve(*args, **kw)            # warm
-    ms, _ = cuda_ms(lambda: k1.admm_shared_solve(*args, **kw), 3)
-    with full_f32_matmul():
-        plain_ms, _ = cuda_ms(
-            lambda: k1.admm_shared_solve_plain(*args, **kw), 1)
-    bound_ms, bound_by, ops = k1_bound(fam.n, fam.m, B, it_ref.cpu().numpy(),
-                                       stats['refactors'], st)
-    print(f'# phase 2: K1 at B={B}: kernel {ms:.3f} ms, plain {plain_ms:.3f} '
-          f'ms, bound {bound_ms:.4f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP '
-          f'FP32) [{card}]')
-    # where K1's time goes: the same batch without adaptive rho (no
-    # refactorization), and one check interval without and with a forced
-    # refactorization of every chunk (rho_tol just above 1)
-    probes = [('adaptive rho off', dict(kw, adaptive=False)),
-              ('one check, no refactor',
-               dict(kw, max_iter=st.check_interval, adaptive=False)),
-              ('one check + one refactor per chunk',
-               dict(kw, max_iter=st.check_interval, rho_tol=1.0 + 1e-6))]
-    for name, pkw in probes:
-        res = k1.admm_shared_solve(*args, **pkw)
-        p_ms, _ = cuda_ms(lambda: k1.admm_shared_solve(*args, **pkw), 3)
-        print(f'# phase 2: K1 probe, {name}: {p_ms:.3f} ms, mean iters '
-              f'{float(res[3].float().mean()):.2f} [{card}]')
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+        check(obj_rel <= PARITY_BAR, f'B={B} {label}: objective differs by '
+              f'{obj_rel}')
+    itf = it.float()
+    print(f'# phase 2: B={B} chunk={chunk} {label}: status equal, max |d '
+          f'iters| {d_it}, mean iters {float(itf.mean()):.2f} (plain '
+          f'{float(it_ref.float().mean()):.2f}), max iters {int(it.max())}, '
+          f'solved {int((status == 1).sum())}; same iterations: max |dx| '
+          f'{max_abs:.3e} (max |dx|/max(1,|x|) {viol:.3e}); {n_diff} '
+          f'instances one check apart, objective rel {obj_rel:.2e}; plain '
+          f'refactorizations {stats["refactors"]}')
+    return max_abs
 
 
 def phase_kernels(card):
@@ -468,6 +524,7 @@ def phase_kernels(card):
     check((fam.n, fam.m) == (222, 252), f'MPC shape {fam.n}, {fam.m}')
     st = ADMMSettings(**BENCH_SETTINGS)
     compare_k1(fam, prob, B_CMP, st, card, timed=False)
+    compare_k1(fam, prob, B_CMP, st, card, timed=False, chunk=K1_PINNED_CHUNK)
     return compare_k1(fam, prob, B_MAIN, st, card, timed=True)
 
 
@@ -491,13 +548,24 @@ def phase_main_path(card, k1_ms):
     rel = abs(val - val_oracle) / max(1.0, abs(val_oracle))
     check(prob.status == 'optimal', f'CPG status {prob.status}')
     check(rel <= PARITY_BAR, f'CPG objective {val} vs oracle {val_oracle}')
+    # one instance has no rho group (pick_shared_chunk gives None, as in the
+    # JAX package): the solver's torch loop, not K1
+    fam = canonicalize(prob)
+    check(k1.pick_shared_chunk(1, fam.m, fam.n) is None
+          and k1.admm_shared_solve.launches == 0, 'the B=1 solve launched K1')
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        prob.solve(method='CPG')
+    t_steady = (time.perf_counter() - t0) / reps
     print(f'# phase 3: solve(method=CPG) optimal, objective {val:.6f} vs '
           f'oracle {val_oracle:.6f} (rel {rel:.2e}), '
-          f'{prob.solver_stats.num_iters} iters, {1e3 * t_cpg:.2f} ms first '
-          f'call [{card}]')
+          f'{prob.solver_stats.num_iters} iters, no rho group (the torch '
+          f'loop, K1 launches '
+          f'{k1.admm_shared_solve.launches}): {1e3 * t_cpg:.2f} ms first '
+          f'call, {1e3 * t_steady:.2f} ms mean of the next {reps} [{card}]')
 
     # B distinct x_init instances through the compiled solver
-    fam = canonicalize(prob)
     theta = x_init_batch(fam, prob, B_MAIN)
     solver = CompiledQPSolver(fam, settings=ADMMSettings(**BENCH_SETTINGS))
     check(solver.jf.maps.dtype == torch.float32, 'float32 on the card')
@@ -520,8 +588,9 @@ def phase_main_path(card, k1_ms):
     t_oracle = time.perf_counter() - t0
     max_rel, n_bad = parity(obj, refs)
     iters = out['iters'].float()
-    print(f'# phase 3: solve_batch B={B_MAIN}: frac_solved {frac}, mean iters '
-          f'{float(iters.mean()):.2f} (max {int(iters.max())}), '
+    print(f'# phase 3: solve_batch B={B_MAIN} (rho group '
+          f'{k1.pick_shared_chunk(B_MAIN, fam.m, fam.n)}): frac_solved {frac}, '
+          f'mean iters {float(iters.mean()):.2f} (max {int(iters.max())}), '
           f'{B_MAIN / dt:.1f} solves/s, {1e3 * dt:.3f} ms per batch (K1 '
           f'{k1_ms:.3f} ms of it, phase 2), K1 launches {launches} [{card}]')
     print(f'# phase 3: oracle parity on {N_ORACLE} instances: max rel '

@@ -1,6 +1,6 @@
 // Building blocks shared by the port's CUDA kernels: a row GEMM for a few
-// vectors against a matrix in global memory, a 128x128-tiled SIMT GEMM
-// for in-kernel matrix products, and warp reductions.  Every kernel that
+// vectors against a matrix in global memory, a row-dot for one vector, and
+// warp reductions.  Every kernel that
 // includes this file launches blocks of kThreads threads.  Full float32
 // FMA throughout: no TF32, no fast math.
 #pragma once
@@ -12,12 +12,7 @@ namespace cvxk {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 128;
-constexpr int kTileK = 16;
-constexpr int kTileLd = kTile + 4;  // sA row stride: float4-aligned
 constexpr int kBatchK = 8;
-// 4-byte words of shared memory that tile_gemm's two tile buffers take
-constexpr int kTileWords = kTileK * kTileLd + kTileK * kTile;
 
 template <bool RO>
 __device__ __forceinline__ float load_w(const float* p) {
@@ -55,87 +50,6 @@ __device__ __forceinline__ void rowgemm(const float* X, int K,
 #pragma unroll
     for (int r = 0; r < R; ++r) epi(r, j, acc[r]);
   }
-}
-
-// C(i, j) = epi(i, j, sum_k A(i, k) s(k) B(k, j)) for i < R, j < N, with
-// A (R x K, row stride lda) and B (K x N, row stride ldb) in global memory
-// and s an optional per-k scale in shared memory.  128x128 output tiles and
-// 16-deep k tiles; each thread owns an 8x8 sub-tile (rows 4ty + {0..3} and
-// 64 + 4ty + {0..3}, columns likewise with tx), read from shared memory as
-// float4, and the next k tile is loaded into registers while the current
-// one is multiplied.  Ends with __syncthreads.
-template <typename Epi>
-__device__ void tile_gemm(const float* A, int lda, const float* kscale,
-                          const float* Bm, int ldb, int R, int N, int K,
-                          float* sA, float* sB, Epi epi) {
-  constexpr int kPer = kTile * kTileK / kThreads;  // elements per thread
-  constexpr int kHalf = kTile / 2;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  for (int i0 = 0; i0 < R; i0 += kTile) {
-    for (int j0 = 0; j0 < N; j0 += kTile) {
-      float acc[8][8];
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-      float ra[kPer], rb[kPer];
-      auto load = [&](int k0) {
-#pragma unroll
-        for (int q = 0; q < kPer; ++q) {
-          const int e = tid + q * kThreads;
-          const int ar = e / kTileK, ac = e % kTileK;  // A: row, k
-          const int gi = i0 + ar, gk = k0 + ac;
-          float v = 0.f;
-          if (gi < R && gk < K) {
-            v = A[(size_t)gi * lda + gk];
-            if (kscale) v *= kscale[gk];
-          }
-          ra[q] = v;
-          const int bc = e % kTile, br = e / kTile;    // B: col, k
-          const int gkb = k0 + br, gj = j0 + bc;
-          rb[q] = (gkb < K && gj < N) ? Bm[(size_t)gkb * ldb + gj] : 0.f;
-        }
-      };
-      load(0);
-      for (int k0 = 0; k0 < K; k0 += kTileK) {
-#pragma unroll
-        for (int q = 0; q < kPer; ++q) {
-          const int e = tid + q * kThreads;
-          sA[(e % kTileK) * kTileLd + e / kTileK] = ra[q];
-          sB[(e / kTile) * kTile + e % kTile] = rb[q];
-        }
-        __syncthreads();
-        if (k0 + kTileK < K) load(k0 + kTileK);
-#pragma unroll
-        for (int k = 0; k < kTileK; ++k) {
-          const float* pa = sA + k * kTileLd + 4 * ty;
-          const float* pb = sB + k * kTile + 4 * tx;
-          const float4 a0 = *reinterpret_cast<const float4*>(pa);
-          const float4 a1 = *reinterpret_cast<const float4*>(pa + kHalf);
-          const float4 b0 = *reinterpret_cast<const float4*>(pb);
-          const float4 b1 = *reinterpret_cast<const float4*>(pb + kHalf);
-          const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int a = 0; a < 8; ++a)
-#pragma unroll
-            for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        const int i = i0 + 4 * ty + (a % 4) + (a / 4) * kHalf;
-#pragma unroll
-        for (int b = 0; b < 8; ++b) {
-          const int j = j0 + 4 * tx + (b % 4) + (b / 4) * kHalf;
-          if (i < R && j < N) epi(i, j, acc[a][b]);
-        }
-      }
-    }
-  }
-  __syncthreads();
 }
 
 __device__ __forceinline__ float warp_max(float v) {

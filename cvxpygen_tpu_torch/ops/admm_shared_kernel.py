@@ -15,23 +15,23 @@ as its instances are done.
 
 Three pieces live here:
 
-- ``admm_shared_solve``: the wrapper.  On CUDA tensors it launches the CUDA
-  kernel in ``csrc/admm_shared.cu`` (built with nvcc at first use, bound
-  with ctypes) and counts the launch in ``admm_shared_solve.launches``; on
+- ``admm_shared_solve``: the wrapper.  On CUDA tensors it runs the CUDA
+  kernels in ``csrc/admm_shared.cu`` (built with nvcc at first use, bound
+  with ctypes) and counts the call in ``admm_shared_solve.launches``; on
   CPU tensors it runs the plain version.  It never falls back: a build,
-  launch or shape the kernel cannot take raises.
+  launch, chunk or shape the kernels cannot take raises.
 - ``admm_shared_solve_plain``: the kernel's arithmetic per chunk in torch,
   vectorized over chunks.  The CPU tests hold it against the Pallas kernel
   in interpret mode, and ``chip_smoke.py`` holds the CUDA kernel against it.
-- ``pick_shared_chunk``: instances per thread block.  Adaptive rho is shared
-  by a chunk, so the chunk changes the answer; both versions take it from
-  here unless the caller pins it.
+- ``pick_shared_chunk``: the rho group.  Adaptive rho is shared by a chunk,
+  so the chunk changes the answer; it is the JAX package's rule, and both
+  versions take it from here unless the caller pins it.
 
-Design on the card (see the note in csrc/admm_shared.cu): one thread block
-per chunk; the chunk's vectors live in shared memory, the shared matrices
-(about 1 MB at the MPC shape in float32) stream from the 50 MB L2, and the
-chunk's refactored M and M^{-1} live in global scratch that this wrapper
-allocates.  float32 only on the card.
+Design on the card (see the note in csrc/admm_shared.cu): a chunk spans many
+thread blocks of ``cta_rows`` instances each, one launch per check interval
+and a chunk-wide decision in a fixed order after it; a rho change refactors
+once per chunk into global scratch that every block of the chunk reads from
+L2.  float32 only on the card.
 """
 from __future__ import annotations
 
@@ -43,43 +43,52 @@ from .build import checked as _checked, load_library
 
 _INF = 1e30
 
-# instances per block, largest first: B=2048 gives 256 blocks at 8 (the card
-# has 132 SMs)
-_CHUNKS = (8, 4, 2, 1)
-_THREADS = 256
-_TILE, _TILE_K = 128, 16
+# The rho group.  The JAX package sizes its chunk to a TPU core's VMEM
+# (ops/admm_shared_kernel.py::pick_shared_chunk there): the largest of these
+# chunks that divides B and whose estimate -- the shared matrices plus the
+# chunk's vectors, times 1.7 -- stays within 70% of 100 MB.  Because the
+# chunk shares rho, that rule defines the answer; these constants are its
+# definition here, not a memory budget of the card.
+_GROUP_CHUNKS = (1024, 512, 256, 128, 64, 32, 16, 8)
+_GROUP_BYTES = 100 * 1024 * 1024
+_GROUP_OVERHEAD = 1.7
+_GROUP_SHARE = 0.7
+
+# instances per thread block on the card, by preference; a block holds rows
+# of one chunk only, so the largest of these that divides the chunk is taken
+_CTA_ROWS = (16, 8, 4, 2, 1)
 # per-block dynamic shared memory limit on Hopper (232,448 bytes)
 _SMEM_LIMIT = 232448
+# words of a block's shared memory that the warps' rings of the streamed
+# matrix take: 8 warps x 5 tiles x 8 rows x 40 words (csrc/admm_shared.cu,
+# kRingWords)
+_RING_WORDS = 8 * 5 * 8 * 40
 
 _LIB = None
 
 
-def shared_smem_bytes(chunk, n, m):
-    """Dynamic shared memory of one block: the layout of the CUDA kernel
-    (csrc/admm_shared.cu, ``smem_words``)."""
-    words = (chunk * (7 * n + 8 * m) + n + 4 * m
-             + _TILE_K * (_TILE + 4) + _TILE_K * _TILE + _THREADS
-             + 7 * chunk)
-    return 4 * words
-
-
-def pick_shared_chunk(B, m, n):
-    """Largest chunk that divides B and whose block fits shared memory, or
-    None when no chunk fits."""
-    for chunk in _CHUNKS:
-        if B % chunk == 0 and shared_smem_bytes(chunk, n, m) <= _SMEM_LIMIT:
+def pick_shared_chunk(B, m, n, dtype=torch.float32):
+    """The reference's rho group: the largest chunk of (1024, ..., 8) that
+    divides B and meets its estimate, or None (then the solver runs its
+    loop, where rho is shared by the whole batch)."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    shared = (3 * n * n + 2 * m * n + 2 * n * n) * esize
+    for chunk in _GROUP_CHUNKS:
+        vecs = chunk * (2 * (2 * n + 4 * m) + 4 * n + 6 * m) * esize
+        est = int((shared + vecs) * _GROUP_OVERHEAD)
+        if B % chunk == 0 and est <= int(_GROUP_BYTES * _GROUP_SHARE):
             return chunk
     return None
 
 
-def _resolve_chunk(B, m, n, chunk):
+def _resolve_chunk(B, m, n, chunk, dtype):
     if chunk is None:
-        chunk = pick_shared_chunk(B, m, n)
+        chunk = pick_shared_chunk(B, m, n, dtype)
         if chunk is None:
             raise ValueError(
-                f'shared-KKT kernel: no chunk fits n={n}, m={m} in shared '
-                'memory')
-    if B % chunk:
+                f'shared-KKT kernel: no rho group for B={B} at n={n}, m={m}; '
+                'pin a chunk or use the solver loop')
+    if chunk <= 0 or B % chunk:
         raise ValueError(f'shared-KKT kernel: chunk {chunk} does not divide '
                          f'the batch {B}')
     return chunk
@@ -104,7 +113,7 @@ def admm_shared_solve_plain(Ps, qs, As, ls, us, rho_base, D, E, c_inv,
     m, n = As.shape
     B = qs.shape[0]
     dtype, dev = Ps.dtype, Ps.device
-    chunk = _resolve_chunk(B, m, n, chunk)
+    chunk = _resolve_chunk(B, m, n, chunk, dtype)
     max_iter = (max_iter // check_interval) * check_interval
     nc = B // chunk
 
@@ -267,8 +276,8 @@ def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.admm_shared_solve_f32.restype = I
     lib.admm_shared_solve_f32.argtypes = (
-        [P] * 8 + [F] + [P] * 6 + [P] * 7 + [P]
-        + [I] * 4 + [F] * 5 + [I] * 6 + [P])
+        [P] * 8 + [F] + [P] * 6 + [P] * 7 + [P] * 5
+        + [I] * 6 + [F] * 5 + [I] * 6 + [P, ctypes.POINTER(I)])
 
 
 def build_kernel(verbose=False):
@@ -280,16 +289,57 @@ def build_kernel(verbose=False):
     return secs
 
 
+def _pad_stride(k):
+    k8 = -(-k // 8) * 8
+    return k8 + (4 - k8) % 32
+
+
+def shared_smem_bytes(rows, n, m):
+    """Dynamic shared memory of one iterate block of ``rows`` instances: the
+    layout of csrc/admm_shared.cu (``smem_words``), the warps' rings of the
+    streamed matrix included."""
+    words = (rows * (6 * _pad_stride(n) + 5 * _pad_stride(m))
+             + -(-(3 * m + n) // 4) * 4 + 8 * rows + _RING_WORDS)
+    return 4 * words
+
+
+def _cta_rows(chunk, n, m, cta_rows, tf32x3):
+    if cta_rows is None:
+        cta_rows = next((r for r in _CTA_ROWS if chunk % r == 0
+                         and shared_smem_bytes(r, n, m) <= _SMEM_LIMIT), None)
+        if cta_rows is None:
+            raise ValueError(f'shared-KKT kernel: no block of instances fits '
+                             f'n={n}, m={m} in shared memory')
+    if cta_rows not in _CTA_ROWS or chunk % cta_rows:
+        raise ValueError(f'shared-KKT kernel: {cta_rows} instances per block '
+                         f'do not tile the chunk {chunk}')
+    if shared_smem_bytes(cta_rows, n, m) > _SMEM_LIMIT:
+        raise ValueError(f'shared-KKT kernel: {cta_rows} instances per block '
+                         f'at n={n}, m={m} exceed shared memory')
+    if tf32x3 and cta_rows != 16:
+        raise ValueError('shared-KKT kernel: the tf32x3 products take 16 '
+                         f'instances per block, not {cta_rows}')
+    return cta_rows
+
+
 def admm_shared_solve(Ps, qs, As, ls, us, rho_base, D, E, c_inv,
                       M0, Minv0, x0, z0, y0, *, sigma, alpha,
                       eps_abs, eps_rel, check_interval, max_iter,
                       ns_adapt_iters, adaptive, rho_tol,
-                      kkt_refine=1, adapt_until=0, chunk=None):
+                      kkt_refine=1, adapt_until=0, chunk=None,
+                      cta_rows=None, tf32x3=False):
     """Kernel K1 on scaled data (signature of ``admm_shared_solve_pallas``
     plus ``chunk``).  Ps, M0, Minv0 (n, n) and As (m, n) shared; qs (B, n),
     ls/us/x0/z0/y0 batched.  Returns (x, z, y, iters, status, rp, rd) in
     the scaled space.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel (float32) or raise."""
+    launch the kernels (float32) or raise.
+
+    On the card only: ``cta_rows`` instances per thread block (default: the
+    largest of 16, 8, 4, 2, 1 that divides the chunk and fits), and
+    ``tf32x3`` runs the iterations' products on the tensor cores (three TF32
+    passes, 16 instances per block).  Neither changes the rho groups.  The
+    number of kernel launches of the last call is left in
+    ``admm_shared_solve.device_launches``."""
     kw = dict(sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
               check_interval=check_interval, max_iter=max_iter,
               ns_adapt_iters=ns_adapt_iters, adaptive=adaptive,
@@ -303,43 +353,64 @@ def admm_shared_solve(Ps, qs, As, ls, us, rho_base, D, E, c_inv,
     m, n = As.shape
     B = qs.shape[0]
     dev = qs.device
-    chunk = _resolve_chunk(B, m, n, chunk)
-    args = [_checked(Ps, 'Ps', (n, n), dev), _checked(As, 'As', (m, n), dev),
-            _checked(As.T.contiguous(), 'At', (n, m), dev),
-            _checked(M0, 'M0', (n, n), dev),
-            _checked(Minv0, 'Minv0', (n, n), dev),
+    chunk = _resolve_chunk(B, m, n, chunk, torch.float32)
+    rows = _cta_rows(chunk, n, m, cta_rows, tf32x3)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ldn, ldm = -(-n // 4) * 4, -(-m // 4) * 4
+
+    def padded(t, name, rows, cols, ld):
+        # the shared matrices with rows padded with zeros to a multiple of
+        # four floats: the kernel copies them in 16-byte pieces
+        t = _checked(t, name, (rows, cols), dev)
+        if cols == ld:
+            return t
+        out = torch.zeros((rows, ld), **f32)
+        out[:, :cols] = t
+        return out
+
+    args = [padded(Ps, 'Ps', n, n, ldn), padded(As, 'As', m, n, ldn),
+            padded(As.T, 'At', n, m, ldm), padded(M0, 'M0', n, n, ldn),
+            padded(Minv0, 'Minv0', n, n, ldn),
             _checked(rho_base, 'rho_base', (m,), dev),
             _checked(D, 'D', (n,), dev), _checked(E, 'E', (m,), dev)]
     vecs = [_checked(qs, 'qs', (B, n), dev), _checked(ls, 'ls', (B, m), dev),
             _checked(us, 'us', (B, m), dev), _checked(x0, 'x0', (B, n), dev),
             _checked(z0, 'z0', (B, m), dev), _checked(y0, 'y0', (B, m), dev)]
     build_kernel()
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
     outs = [torch.empty((B, n), **f32), torch.empty((B, m), **f32),
             torch.empty((B, m), **f32), torch.empty((B,), **i32),
             torch.empty((B,), **i32), torch.empty((B,), **f32),
             torch.empty((B,), **f32)]
-    # per block: M, two M^{-1} ping-pong buffers and one temporary (n, n)
-    scratch = torch.empty((B // chunk, 4, n, n), **f32)
+    nc = B // chunk
+    # per instance: done and the converged iteration, the log-ratio; per
+    # chunk: its control words and M, two M^{-1} buffers and a temporary;
+    # two flags for the host loop
+    work = [torch.empty((2, B), **i32), torch.empty((B,), **f32),
+            torch.empty((nc, 8), **i32), torch.empty((2,), **i32),
+            torch.empty((nc, 4, n, ldn), **f32)]
     max_iter = (max_iter // check_interval) * check_interval
     ptr = [t.data_ptr() for t in args]
     ptr_v = [t.data_ptr() for t in vecs]
-    ptr_o = [t.data_ptr() for t in outs]
+    ptr_o = [t.data_ptr() for t in outs + work]
+    launches = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _LIB.admm_shared_solve_f32(
-            *ptr, float(c_inv), *ptr_v, *ptr_o, scratch.data_ptr(),
-            B, n, m, chunk,
+            *ptr, float(c_inv), *ptr_v, *ptr_o,
+            B, n, m, chunk, rows, int(bool(tf32x3)),
             float(sigma), float(alpha), float(eps_abs), float(eps_rel),
             float(rho_tol),
             int(check_interval), int(max_iter), int(ns_adapt_iters),
-            int(bool(adaptive)), int(kkt_refine), int(adapt_until), stream)
+            int(bool(adaptive)), int(kkt_refine), int(adapt_until), stream,
+            ctypes.byref(launches))
     if err != 0:
         raise RuntimeError(f'admm_shared_solve kernel launch failed: CUDA '
                            f'error {err}')
     admm_shared_solve.launches += 1
+    admm_shared_solve.device_launches = launches.value
     return tuple(outs)
 
 
 admm_shared_solve.launches = 0
+admm_shared_solve.device_launches = 0

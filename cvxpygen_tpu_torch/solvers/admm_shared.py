@@ -10,12 +10,15 @@ Two engines run the same algorithm (OSQP alg. 1-3: Ruiz equilibration,
 rho-scaled splitting, residual termination, infeasibility certificates):
 
 - the whole-solve kernel K1 (ops/admm_shared_kernel.py), chosen by
-  ``kkt_solver='ns'`` with ``use_pallas`` in auto/always/full: a hand-written
-  CUDA kernel on the card, its plain torch version on the CPU or with
-  ``use_pallas='full_interpret'``.  Adaptive rho there is chunk-shared.
-- the torch loop below (``use_pallas='never'``, or the 'inv'/'chol' KKT
-  modes): adaptive rho is batch-shared, and the warm refactorization has
-  the residual-certificate rescue.
+  ``kkt_solver='ns'`` with ``use_pallas`` in auto/always/full on the card
+  (a hand-written CUDA kernel) or ``'full_interpret'`` (its plain torch
+  version), when the batch has a rho group: ``pick_shared_chunk``, the JAX
+  package's rule (1024 at B=2048 on MPC; None when B is not a multiple of
+  8), or a pinned ``chunk``.  Adaptive rho there is chunk-shared.
+- the torch loop below otherwise (``use_pallas='never'``, the 'inv'/'chol'
+  KKT modes, no rho group, or the CPU outside 'full_interpret'): adaptive
+  rho is batch-shared, and the warm refactorization has the
+  residual-certificate rescue.
 """
 from __future__ import annotations
 
@@ -75,7 +78,7 @@ def admm_solve_shared(P, q, A, l, u, n_eq, settings: ADMMSettings,
     dua_res, solved, status) with y in OSQP sign convention.
 
     ``chunk`` fixes the kernel's instances per adaptive-rho group (default:
-    ops/admm_shared_kernel.pick_shared_chunk)."""
+    ops/admm_shared_kernel.pick_shared_chunk; with none, the loop runs)."""
     with full_f32_matmul():
         return _admm_solve_shared_impl(P, q, A, l, u, n_eq, settings,
                                        x0, y0, chunk)
@@ -141,6 +144,19 @@ def shared_kernel_args(P, q, A, l, u, n_eq, settings: ADMMSettings,
                             settings)
 
 
+def use_kernel(st: ADMMSettings, kkt_mode, B, m, n, dtype, dev, chunk=None):
+    """Whether the batch runs kernel K1 (or its plain version), as the JAX
+    package decides: the 'ns' KKT mode, a kernel mode of ``use_pallas`` on
+    the card (any device with 'full_interpret'), and a rho group -- the
+    pinned ``chunk`` or ``pick_shared_chunk``'s.  Otherwise the torch loop
+    runs, with rho shared by the whole batch."""
+    from ..ops.admm_shared_kernel import pick_shared_chunk
+    return (st.use_pallas in _KERNEL_MODES and kkt_mode == 'ns'
+            and (dev.type == 'cuda' or st.use_pallas == 'full_interpret')
+            and (chunk is not None
+                 or pick_shared_chunk(B, m, n, dtype) is not None))
+
+
 def _admm_solve_shared_impl(P, q, A, l, u, n_eq, st: ADMMSettings,
                             x0=None, y0=None, chunk=None):
     m, n = A.shape
@@ -182,7 +198,7 @@ def _admm_solve_shared_impl(P, q, A, l, u, n_eq, st: ADMMSettings,
                     iters=it_vec, pri_res=rp, dua_res=rd,
                     solved=(status == 1), status=status)
 
-    if st.use_pallas in _KERNEL_MODES and kkt_mode == 'ns':
+    if use_kernel(st, kkt_mode, B, m, n, dtype, dev, chunk):
         # the whole solve in kernel K1 (ops/admm_shared_kernel.py)
         from ..ops.admm_shared_kernel import (admm_shared_solve,
                                               admm_shared_solve_plain)

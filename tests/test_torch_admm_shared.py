@@ -18,10 +18,12 @@ from cvxpygen_tpu.solvers.admm_shared import (
     admm_solve_shared as admm_solve_shared_ref,
     ruiz_equilibrate_shared as ruiz_ref)
 from cvxpygen_tpu_torch.ops.admm_shared_kernel import (
-    admm_shared_solve, admm_shared_solve_plain, pick_shared_chunk)
+    _cta_rows, admm_shared_solve, admm_shared_solve_plain, pick_shared_chunk,
+    shared_smem_bytes)
 from cvxpygen_tpu_torch.solvers import admm
 from cvxpygen_tpu_torch.solvers.admm_shared import (admm_solve_shared,
-                                                    ruiz_equilibrate_shared)
+                                                    ruiz_equilibrate_shared,
+                                                    use_kernel)
 
 # adaptive_rho_tolerance 1.5 makes the adaptive runs actually refactor
 # (their iteration counts differ from the non-adaptive runs; the default
@@ -239,11 +241,66 @@ def test_ruiz_and_newton_schulz_match_reference():
 
 
 def test_chunk_rule():
-    assert pick_shared_chunk(2048, 252, 222) == 8
-    assert pick_shared_chunk(1, 252, 222) == 1
-    assert pick_shared_chunk(6, 252, 222) == 2
+    """The rho group is the JAX package's: 1024 at the flagship B=2048 (the
+    port's first rule gave 8, one block's worth), none at B=1 and B=6, where
+    the solver runs its loop (the first rule gave 1 and 2)."""
+    assert pick_shared_chunk(2048, 252, 222) == 1024
+    assert pick_shared_chunk(1, 252, 222) is None
+    assert pick_shared_chunk(6, 252, 222) is None
     assert pick_shared_chunk(8, 40000, 40000) is None
     args = [_t(a) if hasattr(a, 'shape') else float(a)
             for a in _scaled_inputs(B=8)]
     with pytest.raises(ValueError, match='does not divide'):
         admm_shared_solve_plain(*args, **_kernel_kw(False), chunk=3)
+    six = [a[:6] if hasattr(a, 'shape') and a.dim() == 2
+           and a.shape[0] == 8 else a for a in args]
+    with pytest.raises(ValueError, match='no rho group'):
+        admm_shared_solve_plain(*six, **_kernel_kw(False))
+
+
+@pytest.mark.parametrize('shape', [(252, 222), (18, 12)])
+@pytest.mark.parametrize('B', [1, 6, 8, 32, 64, 256, 2048, 4096])
+def test_chunk_rule_matches_reference(B, shape):
+    m, n = shape
+    for dt, jdt in ((torch.float32, jnp.float32), (torch.float64,
+                                                   jnp.float64)):
+        assert pick_shared_chunk(B, m, n, dt) == pick_shared_chunk_ref(
+            B, m, n, jdt)
+
+
+@pytest.mark.parametrize('B, kernel', [(32, True), (6, False)])
+def test_default_route_matches_reference(B, kernel):
+    """No chunk given: at B=32 both packages run the kernel at chunk 32 (its
+    plain version here, interpret mode there), at B=6 both run the loop."""
+    ref_in, port_in, n_eq = _batch(B=B)
+    kw = dict(kkt_solver='ns', use_pallas='full_interpret', max_iter=4000,
+              check_interval=20, adaptive_rho=True)
+    st = _settings(admm, **kw)
+    assert use_kernel(st, 'ns', B, 18, 12, torch.float64,
+                      torch.device('cpu')) is kernel
+    assert (pick_shared_chunk_ref(B, 18, 12, jnp.float64)
+            is not None) is kernel
+    ref = admm_solve_shared_ref(*ref_in, n_eq, _settings(admm_ref, **kw))
+    out = admm_solve_shared(*port_in, n_eq, st)
+    assert np.all(out['solved'].numpy())
+    _assert_same(ref, out, atol=1e-9 if kernel else 1e-8)
+
+
+def test_card_layout_rule():
+    """Instances per thread block on the card: the largest of 16, 8, 4, 2, 1
+    that divides the chunk and fits shared memory; the tensor-core products
+    take 16; a pinned layout that does not tile the chunk raises."""
+    n, m = 222, 252
+    assert shared_smem_bytes(16, n, m) <= 232448 < shared_smem_bytes(24, n, m)
+    assert [_cta_rows(c, n, m, None, False) for c in (1024, 256, 8, 6, 1)] \
+        == [16, 16, 8, 2, 1]
+    assert _cta_rows(1024, n, m, 8, False) == 8
+    wide = _cta_rows(16, 1000, 1000, None, False)
+    assert shared_smem_bytes(wide, 1000, 1000) <= 232448 \
+        < shared_smem_bytes(2 * wide, 1000, 1000)
+    with pytest.raises(ValueError, match='tf32x3'):
+        _cta_rows(8, n, m, None, True)
+    with pytest.raises(ValueError, match='do not tile'):
+        _cta_rows(8, n, m, 16, False)
+    with pytest.raises(ValueError, match='exceed'):
+        _cta_rows(1024, 1000, 1000, 16, False)
