@@ -18,21 +18,12 @@ KERNEL is one of:
   block 8 (bench.py:312-314 settings), and chip_smoke.py phase 5's probes
   "cold factorization + one check, adaptive rho off" and "adaptive rho
   off": three runs of one launch each after one; mean iterations and
-  instances solved show both compute the same.
-
+  instances solved show both compute the same;
 - k1: K1 (csrc/admm_shared.cu), the whole MPC shared solve at B=2048
   (bench.py:142-152 settings) at a pinned chunk 8, and at the checkout's
   own rho group (pick_shared_chunk) where that is another chunk: three
   runs of one call each after one; mean iterations and instances solved
   show what each computes.
-
-- k1parts: where K1's products spend their time.  Builds three copies of
-  the checkout's csrc/admm_shared.cu beside it, into build/k1parts: one
-  without the products' copies into shared memory, one without their
-  multiply-adds, one without both (their results are wrong: timing
-  only), and times each with the source as it is over two check
-  intervals (30 iterations, adaptive rho off, chunk 1024, B=2048): three
-  runs of one call each after one.
 
 Builds that checkout's kernel, times it by CUDA events and prints one line
 per mode.  Needs a CUDA device."""
@@ -162,53 +153,6 @@ def time_k1(label, cs):
             f'{int((out[4] == 1).sum())}', flush=True)
 
 
-def time_k1_parts(label, cs, root):
-    import shutil
-    import cvxpygen_tpu_torch as ct
-    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
-    from cvxpygen_tpu_torch.ops import admm_shared_kernel as k1
-    from cvxpygen_tpu_torch.ops import build
-    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
-    from cvxpygen_tpu_torch.solvers.admm_shared import kernel_kwargs
-    src = open(os.path.join(build.CSRC, 'admm_shared.cu')).read()
-    tile = '    tile(wring + (s % kRingTiles) * kTk * kWs, s * kTk);'
-    copy = ('      cp_async16(dst + row * kWs + 4 * ch,\n'
-            '                 W + (size_t)(k < K ? k : 0) * ldw + c0 + 4 * ch,'
-            ' k < K);')
-    if tile not in src or copy not in src:
-        sys.exit('k1parts: the products of this checkout are not the ones '
-                 'this mode knows')
-    out = os.path.join(root, 'build', 'k1parts')
-    os.makedirs(out, exist_ok=True)
-    shutil.copy(os.path.join(build.CSRC, 'gemm.cuh'), out)
-    variants = {'as is': src, 'no copies': src.replace(copy, '      (void)dst;'),
-                'no multiply-adds': src.replace(tile, '    (void)tile;')}
-    variants['neither'] = variants['no copies'].replace(tile, '    (void)tile;')
-    build.CSRC = out
-    libs = {}
-    for i, (name, text) in enumerate(variants.items()):
-        with open(os.path.join(out, f'admm_shared_part{i}.cu'), 'w') as f:
-            f.write(text)
-        libs[name] = build.load_library(f'admm_shared_part{i}', k1._bind)[0]
-    k1.build_kernel = lambda *a, **k: 0.0
-    prob = cs.assign_mpc(cs.mpc_problem(ct))
-    fam, st, B = canonicalize(prob), ADMMSettings(**cs.BENCH_SETTINGS), 2048
-    args = cs.k1_inputs(fam, cs.x_init_batch(fam, prob, B), st, 'cuda')
-    kw = dict(kernel_kwargs(st), chunk=1024, max_iter=2 * st.check_interval,
-              adaptive=False, cta_rows=16)
-    for name, lib in libs.items():
-        k1._LIB = lib
-
-        def run():
-            return k1.admm_shared_solve(*args, **kw)
-
-        run()
-        means = [cuda_ms(run, 1)[0] for _ in range(3)]
-        print(f'# K1 {label}, products {name}: ' + ' '.join(
-            f'{m:.3f}' for m in means) + ' ms (B=2048, chunk 1024, two '
-            'check intervals)', flush=True)
-
-
 def main():
     kernel, root, label = sys.argv[1], sys.argv[2], sys.argv[3]
     root = os.path.abspath(root)
@@ -226,10 +170,8 @@ def main():
         time_k2(label, cs)
     elif kernel == 'k1':
         time_k1(label, cs)
-    elif kernel == 'k1parts':
-        time_k1_parts(label, cs, root)
     else:
-        sys.exit(f'unknown kernel {kernel!r}: k1, k1parts, k2, k3 or k6')
+        sys.exit(f'unknown kernel {kernel!r}: k1, k2, k3 or k6')
 
 
 if __name__ == '__main__':

@@ -15,15 +15,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    together, and identify the card;
 2. K1 against its plain torch version on the card, on the scaled MPC data
    (n=222, m=252) that the shared main path hands it, at B=256 (the rho
-   group of the rule, 256, and a pinned chunk 8) and at the main path's
-   B=2048 (rho group 1024), float32, adaptive rho on, the same chunk for
-   both: same status, iterations within one check interval, x within
-   1e-3 * max(1, |x|) where the iterations agree (at most 1% may stop one
-   check apart, with objectives within 1e-2); a second call bitwise equal
-   to the first (the order-fixed chunk reductions); at B=2048 the card's
-   layouts (16 and 8 instances per block on SIMT products, bitwise equal;
-   16 on three-pass TF32 mma.sync), each at the same bars and timed;
-   kernel and plain times, device launches per call, and probes;
+   group of the rule, 256, and pinned chunks 8, 4, 2 and 1, whose thread
+   blocks hold 8, 4, 2 and 1 instances) and at the main path's B=2048 (rho
+   group 1024), float32, adaptive rho on, the same chunk for both: same
+   status, iterations within one check interval, x within 1e-3 * max(1,
+   |x|) where the iterations agree (at most 1% may stop one check apart,
+   with objectives within 1e-2); a second call bitwise equal to the first
+   (the order-fixed chunk reductions); at B=2048 8 instances per thread
+   block bitwise equal to the default 16; kernel and plain times, device
+   launches per call, and probes;
 3. the shared main path at full width: MPC H=10 through generate_code ->
    solve(method='CPG') (B=1 has no rho group: the torch loop, as in the JAX
    package; first call and the mean of five more), then
@@ -234,8 +234,9 @@ K5_TOL = 1e-4
 K5_FLAG_BAND = 1e-5
 B_MAIN = 2048
 B_CMP = 256
-# K1 also at a pinned chunk: the rho group of the port's first rule
-K1_PINNED_CHUNK = 8
+# K1 also at pinned chunks: 8, the rho group of the port's first rule, and
+# 4, 2, 1, whose thread blocks hold 4, 2 and 1 instances
+K1_PINNED_CHUNKS = (8, 4, 2, 1)
 B_PORTFOLIO = 512
 B_K3_SLICE = 512
 N_ORACLE = 128
@@ -412,26 +413,14 @@ def compare_k1(fam, prob, B, st, card, timed, chunk=None):
     if not timed:
         return dict(max_abs_err=max_abs)
     it_ref = ref[3]
-    # the card's layout choices (not part of the answer), each held to the
-    # plain version: 16 and 8 instances per block on SIMT float32 products
-    # also give the same bits (each row sums in k order either way); 16 per
-    # block on the tensor cores takes three TF32 passes
-    layouts = (('16 per block, SIMT', dict(cta_rows=16)),
-               ('8 per block, SIMT', dict(cta_rows=8)),
-               ('16 per block, tf32x3', dict(cta_rows=16, tf32x3=True)))
-    simt = None
-    for name, lkw in layouts:
-        res = k1.admm_shared_solve(*args, **kw, **lkw)
-        torch.cuda.synchronize()
-        k1_errors(res, ref, args, B, chunk, st, stats, name)
-        if not lkw.get('tf32x3'):
-            simt = simt or res
-            check(all(torch.equal(a, b) for a, b in zip(simt, res)),
-                  f'B={B}: K1 with {name} differs from 16 per block')
-        l_ms, _ = cuda_ms(lambda: k1.admm_shared_solve(*args, **kw, **lkw), 3)
-        print(f'# phase 2: K1 layout {name}: {l_ms:.3f} ms, '
-              f'{k1.admm_shared_solve.device_launches} device launches per '
-              f'call [{card}]')
+    # instances per thread block are the card's choice, not part of the
+    # answer: 8 per block (the private hook) gives the bits of the default 16
+    res = k1._launch(args, kw, 8)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, res)),
+          f'B={B}: K1 at 8 instances per block differs from the default')
+    print(f'# phase 2: B={B} chunk={chunk}: 8 instances per block give the '
+          'bits of the default 16')
     k1.admm_shared_solve(*args, **kw)            # warm
     ms, _ = cuda_ms(lambda: k1.admm_shared_solve(*args, **kw), 3)
     launches = k1.admm_shared_solve.device_launches
@@ -524,7 +513,8 @@ def phase_kernels(card):
     check((fam.n, fam.m) == (222, 252), f'MPC shape {fam.n}, {fam.m}')
     st = ADMMSettings(**BENCH_SETTINGS)
     compare_k1(fam, prob, B_CMP, st, card, timed=False)
-    compare_k1(fam, prob, B_CMP, st, card, timed=False, chunk=K1_PINNED_CHUNK)
+    for chunk in K1_PINNED_CHUNKS:
+        compare_k1(fam, prob, B_CMP, st, card, timed=False, chunk=chunk)
     return compare_k1(fam, prob, B_MAIN, st, card, timed=True)
 
 

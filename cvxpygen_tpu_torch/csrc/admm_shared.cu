@@ -24,21 +24,20 @@
 // Design.  Rho and M^-1 are fixed between two checks, so within a check
 // interval the instances are independent:
 //  - iterate_kernel: one block of 256 threads per tile of R instances of one
-//    chunk (R = 16, 8, 4, 2 or 1; the wrapper's choice, not part of the
-//    answer).  The tile's x, z, y, the iterates and the temporaries live in
-//    shared memory (q, l, u are read through L1); it runs check_interval
-//    iterations, the residual and certificate products and each instance's
-//    checks, and writes the state, the status and the log-ratio back.  A
-//    tile whose instances are all done exits at once: their state would not
-//    change and their checks would give the same results again.  In each
+//    chunk (R = 16, 8, 4, 2 or 1, the largest that divides the chunk and
+//    fits: the wrapper's choice, not part of the answer).  The tile's x, z,
+//    y, the iterates and the temporaries live in shared memory (q, l, u
+//    are read through L1); it runs check_interval iterations, the residual
+//    and certificate products and each instance's checks, and writes the
+//    state, the status and the log-ratio back.  A tile whose instances are
+//    all done exits at once: their state would not change and their checks
+//    would give the same results again.  In each
 //    product every warp streams 32 columns of the matrix through its own
 //    ring in shared memory (16-byte cp.async, four tiles of 8 rows in
 //    flight), so no block-wide barrier sits inside a product; a lane sums
 //    a micro-tile of R/4 instances by 4 columns in full float32 FMA in k
-//    order (so an instance's result does not depend on R), or with tf32x3
-//    a warp runs 16 x 8 tiles on mma.sync m16n8k8 with the three-pass TF32
-//    split (hi*hi + hi*lo + lo*hi), each 32-deep stage summed apart and
-//    added in a rounded float32 add;
+//    order (so an instance's result does not depend on R; the three-pass
+//    TF32 mma.sync products were slower on the card, PERF.md);
 //  - decide_kernel: one block per chunk sums the chunk's log-ratios and
 //    counts its active instances in a fixed order (each thread a strided
 //    slice in ascending order, then a tree over the threads; no float
@@ -56,8 +55,8 @@
 //    interval, the refactorization, or nothing.
 // The n x n and m x n matrices arrive with rows padded to a multiple of 4
 // floats (the wrapper pads them), so every row starts on 16 bytes.  Full
-// float32 arithmetic outside the tf32x3 products, no fast math (logf and
-// expf of the adaptive-rho mean match the plain version).
+// float32 arithmetic, no fast math (logf and expf of the adaptive-rho mean
+// match the plain version).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -112,8 +111,8 @@ struct Params {
 };
 
 // row stride in shared memory of a vector of length k: at least k rounded
-// up to 8 (the zero padding lets mma.sync read whole k8 steps) and 4 modulo
-// 32, so the 16 x 8 fragment reads hit 32 distinct banks
+// up to 8 (the zero padding lets the products read whole 8-deep tiles) and
+// 4 modulo 32, so the rows of a micro-tile start in distinct banks
 __host__ __device__ inline int pad_stride(int k) {
   const int k8 = (k + 7) / 8 * 8;
   return k8 + ((4 - k8) % 32 + 32) % 32;
@@ -121,11 +120,19 @@ __host__ __device__ inline int pad_stride(int k) {
 
 __host__ __device__ inline int round4(int k) { return (k + 3) / 4 * 4; }
 
-// 4-byte words of dynamic shared memory of one iterate block of R rows
-// (shared_smem_bytes in the Python wrapper mirrors this formula)
-__host__ __device__ inline size_t smem_words(int R, int n, int m) {
+// Offset in 4-byte words of the warps' rings in the dynamic shared memory of
+// one iterate block of R rows: after the R x pad_stride vectors, the
+// per-row vectors (m, m, m, n) and the per-row scalars (six of R words, 8R
+// reserved).  A multiple of 4 for every R, so the rings start on 16 bytes.
+__host__ __device__ inline size_t ring_offset(int R, int n, int m) {
   return (size_t)R * (6 * pad_stride(n) + 5 * pad_stride(m)) +
-         round4(3 * m + n) + 8 * R + kRingWords;
+         round4(3 * m + n) + 8 * R;
+}
+
+// words of the whole block (shared_smem_bytes in the Python wrapper mirrors
+// this formula)
+__host__ __device__ inline size_t smem_words(int R, int n, int m) {
+  return ring_offset(R, n, m) + kRingWords;
 }
 
 // The products stream their matrix W (K x N, row stride ldw, a multiple of
@@ -136,8 +143,7 @@ __host__ __device__ inline size_t smem_words(int R, int n, int m) {
 // barrier across the block inside a product (rows past K are zero-filled).
 constexpr int kTk = 8;
 constexpr int kWc = 32;  // columns of W per warp and pass
-constexpr int kWs = kWc + 8;  // ring row stride: 8 mod 32, so the mma.sync
-                              // B-fragment reads hit 32 distinct banks
+constexpr int kWs = kWc + 8;  // ring row stride
 static_assert(kRingWords == kWarps * kRingTiles * kTk * kWs,
               "the rings' share of shared memory");
 
@@ -252,101 +258,8 @@ __device__ __forceinline__ void prod_simt(const float* X, int SX, int K,
   }
 }
 
-// x rounded to TF32 (to nearest, ties away from zero) and the TF32 rest
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  const float r = x - __uint_as_float(hi);
-  lo = (__float_as_uint(r) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The same product for R = 16 rows on the tensor cores: a warp's 32
-// columns are four 8-column groups, lane (g, t) = (lane / 4, lane % 4) holds
-// rows g and g + 8.  Three TF32 passes per k8 step (the small terms
-// first); every four steps the stage's sum joins the running sum in a
-// float32 add.
-template <typename Epi>
-__device__ __forceinline__ void prod_tc(const float* X, int SX, int K,
-                                        const float* W, int ldw, int N,
-                                        float* ring, Epi epi) {
-  constexpr int kG = kWc / 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  float* wring = ring + warp * kRingTiles * kTk * kWs;
-  for (int j0 = 0; j0 < N; j0 += kThreads) {
-    const int c0 = j0 + warp * kWc;
-    if (c0 >= N) continue;
-    float acc[kG][4], part[kG][4];
-#pragma unroll
-    for (int s = 0; s < kG; ++s)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[s][i] = part[s][i] = 0.f;
-    auto flush = [&]() {
-#pragma unroll
-      for (int s = 0; s < kG; ++s)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[s][i] += part[s][i];
-          part[s][i] = 0.f;
-        }
-    };
-    int steps = 0;
-    warp_pipeline(W, ldw, K, c0, wring, [&](const float* Ws, int k0) {
-      unsigned ah[4], al[4];
-      split_tf32(X[g * SX + k0 + t], ah[0], al[0]);
-      split_tf32(X[(g + 8) * SX + k0 + t], ah[1], al[1]);
-      split_tf32(X[g * SX + k0 + t + 4], ah[2], al[2]);
-      split_tf32(X[(g + 8) * SX + k0 + t + 4], ah[3], al[3]);
-#pragma unroll
-      for (int s = 0; s < kG; ++s) {
-        unsigned bh0, bl0, bh1, bl1;
-        split_tf32(Ws[t * kWs + 8 * s + g], bh0, bl0);
-        split_tf32(Ws[(t + 4) * kWs + 8 * s + g], bh1, bl1);
-        mma_tf32(part[s], al, bh0, bh1);
-        mma_tf32(part[s], ah, bl0, bl1);
-        mma_tf32(part[s], ah, bh0, bh1);
-      }
-      if ((++steps & 3) == 0) flush();
-    });
-    flush();
-#pragma unroll
-    for (int s = 0; s < kG; ++s) {
-      const int col = c0 + 8 * s + 2 * t;
-      if (col < N) {
-        epi(g, col, acc[s][0]);
-        epi(g + 8, col, acc[s][2]);
-      }
-      if (col + 1 < N) {
-        epi(g, col + 1, acc[s][1]);
-        epi(g + 8, col + 1, acc[s][3]);
-      }
-    }
-  }
-}
-
-template <int R, bool TC, typename Epi>
-__device__ __forceinline__ void prod(const float* X, int SX, int K,
-                                     const float* W, int ldw, int N,
-                                     float* ring, Epi epi) {
-  if constexpr (TC) {
-    static_assert(R == 16, "the tensor-core product takes 16 rows");
-    prod_tc(X, SX, K, W, ldw, N, ring, epi);
-  } else {
-    prod_simt<R>(X, SX, K, W, ldw, N, ring, epi);
-  }
-}
-
 // One check interval of one tile of R instances of one chunk.
-template <int R, bool TC>
+template <int R>
 __global__ void __launch_bounds__(kThreads) iterate_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   const int n = p.n, m = p.m;
@@ -387,7 +300,7 @@ __global__ void __launch_bounds__(kThreads) iterate_kernel(const Params p) {
   int* s_done = (int*)(s_logr + R);       // R
   int* s_status = s_done + R;             // R
   int* s_itvec = s_status + R;            // R
-  float* ring = (float*)(s_itvec + R);    // kRingWords: the warps' rings
+  float* ring = smem + ring_offset(R, n, m);  // kRingWords: warps' rings
 
   const size_t words = smem_words(R, n, m);
   for (size_t e = tid; e < words; e += kThreads) smem[e] = 0.f;
@@ -446,29 +359,30 @@ __global__ void __launch_bounds__(kThreads) iterate_kernel(const Params p) {
     }
     __syncthreads();
     // rhs = sigma x - q + (rho z - y) A
-    prod<R, TC>(T1, Sm, m, p.As, ldn, n, ring, [&](int r, int j, float acc) {
+    prod_simt<R>(T1, Sm, m, p.As, ldn, n, ring, [&](int r, int j, float acc) {
       T2[r * Sn + j] =
           (sigma * Xi[r * Sn + j] - __ldg(qg + (size_t)r * n + j)) + acc;
     });
     __syncthreads();
     // x~ = rhs M^-1
-    prod<R, TC>(T2, Sn, n, Minv, ldn, n, ring,
-                [&](int r, int j, float acc) { T3[r * Sn + j] = acc; });
+    prod_simt<R>(T2, Sn, n, Minv, ldn, n, ring,
+                 [&](int r, int j, float acc) { T3[r * Sn + j] = acc; });
     __syncthreads();
     for (int s = 0; s < p.kkt_refine; ++s) {
       // r = rhs - x~ M, then x~ += r M^-1
-      prod<R, TC>(T3, Sn, n, Mm, ldn, n, ring, [&](int r, int j, float acc) {
+      prod_simt<R>(T3, Sn, n, Mm, ldn, n, ring, [&](int r, int j, float acc) {
         Rr[r * Sn + j] = T2[r * Sn + j] - acc;
       });
       __syncthreads();
-      prod<R, TC>(Rr, Sn, n, Minv, ldn, n, ring, [&](int r, int j, float acc) {
-        T3[r * Sn + j] = T3[r * Sn + j] + acc;
-      });
+      prod_simt<R>(Rr, Sn, n, Minv, ldn, n, ring,
+                   [&](int r, int j, float acc) {
+                     T3[r * Sn + j] = T3[r * Sn + j] + acc;
+                   });
       __syncthreads();
     }
     // z~ = x~ A'
-    prod<R, TC>(T3, Sn, n, p.At, ldm, m, ring,
-                [&](int r, int j, float acc) { T1[r * Sm + j] = acc; });
+    prod_simt<R>(T3, Sn, n, p.At, ldm, m, ring,
+                 [&](int r, int j, float acc) { T1[r * Sm + j] = acc; });
     __syncthreads();
     for (int e = tid; e < R * n; e += kThreads) {
       const int o = (e / n) * Sn + e % n;
@@ -511,18 +425,18 @@ __global__ void __launch_bounds__(kThreads) iterate_kernel(const Params p) {
   __syncthreads();
 
   // ---- residual and certificate products ----
-  prod<R, TC>(Xs, Sn, n, p.At, ldm, m, ring,
-              [&](int r, int j, float acc) { T1[r * Sm + j] = acc; });
-  prod<R, TC>(Xi, Sn, n, p.At, ldm, m, ring,
-              [&](int r, int j, float acc) { Zi[r * Sm + j] = acc; });
-  prod<R, TC>(Xs, Sn, n, p.Ps, ldn, n, ring,
-              [&](int r, int j, float acc) { T2[r * Sn + j] = acc; });
-  prod<R, TC>(Xi, Sn, n, p.Ps, ldn, n, ring,
-              [&](int r, int j, float acc) { T3[r * Sn + j] = acc; });
-  prod<R, TC>(Ys, Sm, m, p.As, ldn, n, ring,
-              [&](int r, int j, float acc) { Rr[r * Sn + j] = acc; });
-  prod<R, TC>(Yi, Sm, m, p.As, ldn, n, ring,
-              [&](int r, int j, float acc) { T4[r * Sn + j] = acc; });
+  prod_simt<R>(Xs, Sn, n, p.At, ldm, m, ring,
+               [&](int r, int j, float acc) { T1[r * Sm + j] = acc; });
+  prod_simt<R>(Xi, Sn, n, p.At, ldm, m, ring,
+               [&](int r, int j, float acc) { Zi[r * Sm + j] = acc; });
+  prod_simt<R>(Xs, Sn, n, p.Ps, ldn, n, ring,
+               [&](int r, int j, float acc) { T2[r * Sn + j] = acc; });
+  prod_simt<R>(Xi, Sn, n, p.Ps, ldn, n, ring,
+               [&](int r, int j, float acc) { T3[r * Sn + j] = acc; });
+  prod_simt<R>(Ys, Sm, m, p.As, ldn, n, ring,
+               [&](int r, int j, float acc) { Rr[r * Sn + j] = acc; });
+  prod_simt<R>(Yi, Sm, m, p.As, ldn, n, ring,
+               [&](int r, int j, float acc) { T4[r * Sn + j] = acc; });
   __syncthreads();
 
   // ---- per-instance checks, one warp per instance ----
@@ -839,27 +753,25 @@ __global__ void init_kernel(const Params p) {
   }
 }
 
-template <int R, bool TC>
+template <int R>
 cudaError_t launch_iterate(const Params& p, cudaStream_t s) {
   const size_t smem = 4 * smem_words(R, p.n, p.m);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      iterate_kernel<R, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      iterate_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  iterate_kernel<R, TC><<<p.B / R, kThreads, smem, s>>>(p);
+  iterate_kernel<R><<<p.B / R, kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-cudaError_t iterate(const Params& p, int rows, int tc, cudaStream_t s) {
-  if (tc) return rows == 16 ? launch_iterate<16, true>(p, s)
-                            : cudaErrorInvalidValue;
+cudaError_t iterate(const Params& p, int rows, cudaStream_t s) {
   switch (rows) {
-    case 16: return launch_iterate<16, false>(p, s);
-    case 8: return launch_iterate<8, false>(p, s);
-    case 4: return launch_iterate<4, false>(p, s);
-    case 2: return launch_iterate<2, false>(p, s);
-    case 1: return launch_iterate<1, false>(p, s);
+    case 16: return launch_iterate<16>(p, s);
+    case 8: return launch_iterate<8>(p, s);
+    case 4: return launch_iterate<4>(p, s);
+    case 2: return launch_iterate<2>(p, s);
+    case 1: return launch_iterate<1>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -876,14 +788,14 @@ extern "C" int admm_shared_solve_f32(
     const float* x0, const float* z0, const float* y0, float* ox, float* oz,
     float* oy, int* oit, int* ost, float* orp, float* ord, int* work_i,
     float* work_f, int* cs, int* flags, float* scratch, int B, int n, int m,
-    int chunk, int cta_rows, int tf32x3, float sigma, float alpha,
+    int chunk, int cta_rows, float sigma, float alpha,
     float eps_abs, float eps_rel, float rho_tol, int check_interval,
     int max_iter, int ns_adapt_iters, int adaptive, int kkt_refine,
     int adapt_until, void* stream, int* launches) {
   *launches = 0;
   if (chunk <= 0 || B % chunk != 0 || cta_rows <= 0 || chunk % cta_rows != 0 ||
       n <= 0 || m <= 0 || check_interval <= 0 || ns_adapt_iters < 0 ||
-      (tf32x3 && cta_rows != 16) || B / chunk > 65535)
+      B / chunk > 65535)
     return (int)cudaErrorInvalidValue;
   if (4 * smem_words(cta_rows, n, m) > kSmemLimit)
     return (int)cudaErrorInvalidValue;
@@ -914,7 +826,7 @@ extern "C" int admm_shared_solve_f32(
                                   (int)(smem_m > smem_n ? smem_m : smem_n))))
     return (int)err;
   while (max_iter > 0) {
-    if ((err = iterate(p, cta_rows, tf32x3, s))) return (int)err;
+    if ((err = iterate(p, cta_rows, s))) return (int)err;
     if ((err = cudaMemsetAsync(flags, 0, 2 * sizeof(int), s))) return (int)err;
     decide_kernel<<<nc, kThreads, 0, s>>>(p);
     if ((err = cudaGetLastError())) return (int)err;

@@ -28,7 +28,7 @@ Three pieces live here:
   versions take it from here unless the caller pins it.
 
 Design on the card (see the note in csrc/admm_shared.cu): a chunk spans many
-thread blocks of ``cta_rows`` instances each, one launch per check interval
+thread blocks of up to 16 instances each (``_cta_rows``), one launch per check interval
 and a chunk-wide decision in a fixed order after it; a rho change refactors
 once per chunk into global scratch that every block of the chunk reads from
 L2.  float32 only on the card.
@@ -277,7 +277,7 @@ def _bind(lib):
     lib.admm_shared_solve_f32.restype = I
     lib.admm_shared_solve_f32.argtypes = (
         [P] * 8 + [F] + [P] * 6 + [P] * 7 + [P] * 5
-        + [I] * 6 + [F] * 5 + [I] * 6 + [P, ctypes.POINTER(I)])
+        + [I] * 5 + [F] * 5 + [I] * 6 + [P, ctypes.POINTER(I)])
 
 
 def build_kernel(verbose=False):
@@ -294,82 +294,89 @@ def _pad_stride(k):
     return k8 + (4 - k8) % 32
 
 
+def ring_offset(rows, n, m):
+    """Offset in 4-byte words of the warps' rings in the shared memory of one
+    iterate block of ``rows`` instances (csrc/admm_shared.cu,
+    ``ring_offset``): the rings take 16-byte copies, so it is a multiple of
+    4."""
+    return (rows * (6 * _pad_stride(n) + 5 * _pad_stride(m))
+            + -(-(3 * m + n) // 4) * 4 + 8 * rows)
+
+
 def shared_smem_bytes(rows, n, m):
     """Dynamic shared memory of one iterate block of ``rows`` instances: the
     layout of csrc/admm_shared.cu (``smem_words``), the warps' rings of the
     streamed matrix included."""
-    words = (rows * (6 * _pad_stride(n) + 5 * _pad_stride(m))
-             + -(-(3 * m + n) // 4) * 4 + 8 * rows + _RING_WORDS)
-    return 4 * words
+    return 4 * (ring_offset(rows, n, m) + _RING_WORDS)
 
 
-def _cta_rows(chunk, n, m, cta_rows, tf32x3):
-    if cta_rows is None:
-        cta_rows = next((r for r in _CTA_ROWS if chunk % r == 0
-                         and shared_smem_bytes(r, n, m) <= _SMEM_LIMIT), None)
-        if cta_rows is None:
-            raise ValueError(f'shared-KKT kernel: no block of instances fits '
-                             f'n={n}, m={m} in shared memory')
-    if cta_rows not in _CTA_ROWS or chunk % cta_rows:
-        raise ValueError(f'shared-KKT kernel: {cta_rows} instances per block '
-                         f'do not tile the chunk {chunk}')
-    if shared_smem_bytes(cta_rows, n, m) > _SMEM_LIMIT:
-        raise ValueError(f'shared-KKT kernel: {cta_rows} instances per block '
-                         f'at n={n}, m={m} exceed shared memory')
-    if tf32x3 and cta_rows != 16:
-        raise ValueError('shared-KKT kernel: the tf32x3 products take 16 '
-                         f'instances per block, not {cta_rows}')
-    return cta_rows
+def _cta_rows(chunk, n, m):
+    """Instances per thread block on the card: the largest of 16, 8, 4, 2, 1
+    that divides the chunk (a block holds rows of one chunk) and fits."""
+    rows = next((r for r in _CTA_ROWS if chunk % r == 0
+                 and shared_smem_bytes(r, n, m) <= _SMEM_LIMIT), None)
+    if rows is None:
+        raise ValueError(f'shared-KKT kernel: no block of instances fits '
+                         f'n={n}, m={m} in shared memory')
+    return rows
 
 
 def admm_shared_solve(Ps, qs, As, ls, us, rho_base, D, E, c_inv,
                       M0, Minv0, x0, z0, y0, *, sigma, alpha,
                       eps_abs, eps_rel, check_interval, max_iter,
                       ns_adapt_iters, adaptive, rho_tol,
-                      kkt_refine=1, adapt_until=0, chunk=None,
-                      cta_rows=None, tf32x3=False):
+                      kkt_refine=1, adapt_until=0, chunk=None):
     """Kernel K1 on scaled data (signature of ``admm_shared_solve_pallas``
     plus ``chunk``).  Ps, M0, Minv0 (n, n) and As (m, n) shared; qs (B, n),
     ls/us/x0/z0/y0 batched.  Returns (x, z, y, iters, status, rp, rd) in
     the scaled space.  CPU tensors run the plain version; CUDA tensors
-    launch the kernels (float32) or raise.
-
-    On the card only: ``cta_rows`` instances per thread block (default: the
-    largest of 16, 8, 4, 2, 1 that divides the chunk and fits), and
-    ``tf32x3`` runs the iterations' products on the tensor cores (three TF32
-    passes, 16 instances per block).  Neither changes the rho groups.  The
-    number of kernel launches of the last call is left in
+    launch the kernels (float32) or raise.  The number of kernel launches
+    of the last call on the card is left in
     ``admm_shared_solve.device_launches``."""
+    args = (Ps, qs, As, ls, us, rho_base, D, E, c_inv, M0, Minv0, x0, z0, y0)
     kw = dict(sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
               check_interval=check_interval, max_iter=max_iter,
               ns_adapt_iters=ns_adapt_iters, adaptive=adaptive,
               rho_tol=rho_tol, kkt_refine=kkt_refine,
               adapt_until=adapt_until, chunk=chunk)
     if qs.device.type == 'cpu':
-        return admm_shared_solve_plain(Ps, qs, As, ls, us, rho_base, D, E,
-                                       c_inv, M0, Minv0, x0, z0, y0, **kw)
+        return admm_shared_solve_plain(*args, **kw)
     if qs.device.type != 'cuda':
         raise TypeError(f'shared-KKT kernel: no kernel for {qs.device}')
     m, n = As.shape
+    kw['chunk'] = _resolve_chunk(qs.shape[0], m, n, chunk, torch.float32)
+    return _launch(args, kw, _cta_rows(kw['chunk'], n, m))
+
+
+def _launch(args, kw, rows):
+    """K1 on the card at ``rows`` instances per thread block (``_cta_rows``;
+    another divisor of the chunk that fits only to check that the layout
+    does not change the answer)."""
+    (Ps, qs, As, ls, us, rho_base, D, E, c_inv, M0, Minv0, x0, z0,
+     y0) = args
+    m, n = As.shape
     B = qs.shape[0]
     dev = qs.device
-    chunk = _resolve_chunk(B, m, n, chunk, torch.float32)
-    rows = _cta_rows(chunk, n, m, cta_rows, tf32x3)
+    chunk, check_interval = kw['chunk'], kw['check_interval']
+    if rows not in _CTA_ROWS or chunk % rows \
+            or shared_smem_bytes(rows, n, m) > _SMEM_LIMIT:
+        raise ValueError(f'shared-KKT kernel: {rows} instances per block do '
+                         f'not tile the chunk {chunk} at n={n}, m={m}')
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     ldn, ldm = -(-n // 4) * 4, -(-m // 4) * 4
 
-    def padded(t, name, rows, cols, ld):
+    def padded(t, name, nrows, cols, ld):
         # the shared matrices with rows padded with zeros to a multiple of
         # four floats: the kernel copies them in 16-byte pieces
-        t = _checked(t, name, (rows, cols), dev)
+        t = _checked(t, name, (nrows, cols), dev)
         if cols == ld:
             return t
-        out = torch.zeros((rows, ld), **f32)
+        out = torch.zeros((nrows, ld), **f32)
         out[:, :cols] = t
         return out
 
-    args = [padded(Ps, 'Ps', n, n, ldn), padded(As, 'As', m, n, ldn),
+    mats = [padded(Ps, 'Ps', n, n, ldn), padded(As, 'As', m, n, ldn),
             padded(As.T, 'At', n, m, ldm), padded(M0, 'M0', n, n, ldn),
             padded(Minv0, 'Minv0', n, n, ldn),
             _checked(rho_base, 'rho_base', (m,), dev),
@@ -389,8 +396,8 @@ def admm_shared_solve(Ps, qs, As, ls, us, rho_base, D, E, c_inv,
     work = [torch.empty((2, B), **i32), torch.empty((B,), **f32),
             torch.empty((nc, 8), **i32), torch.empty((2,), **i32),
             torch.empty((nc, 4, n, ldn), **f32)]
-    max_iter = (max_iter // check_interval) * check_interval
-    ptr = [t.data_ptr() for t in args]
+    max_iter = (kw['max_iter'] // check_interval) * check_interval
+    ptr = [t.data_ptr() for t in mats]
     ptr_v = [t.data_ptr() for t in vecs]
     ptr_o = [t.data_ptr() for t in outs + work]
     launches = ctypes.c_int(0)
@@ -398,12 +405,12 @@ def admm_shared_solve(Ps, qs, As, ls, us, rho_base, D, E, c_inv,
     with torch.cuda.device(dev):
         err = _LIB.admm_shared_solve_f32(
             *ptr, float(c_inv), *ptr_v, *ptr_o,
-            B, n, m, chunk, rows, int(bool(tf32x3)),
-            float(sigma), float(alpha), float(eps_abs), float(eps_rel),
-            float(rho_tol),
-            int(check_interval), int(max_iter), int(ns_adapt_iters),
-            int(bool(adaptive)), int(kkt_refine), int(adapt_until), stream,
-            ctypes.byref(launches))
+            B, n, m, chunk, rows,
+            float(kw['sigma']), float(kw['alpha']), float(kw['eps_abs']),
+            float(kw['eps_rel']), float(kw['rho_tol']),
+            int(check_interval), int(max_iter), int(kw['ns_adapt_iters']),
+            int(bool(kw['adaptive'])), int(kw['kkt_refine']),
+            int(kw['adapt_until']), stream, ctypes.byref(launches))
     if err != 0:
         raise RuntimeError(f'admm_shared_solve kernel launch failed: CUDA '
                            f'error {err}')

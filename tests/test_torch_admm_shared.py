@@ -18,8 +18,8 @@ from cvxpygen_tpu.solvers.admm_shared import (
     admm_solve_shared as admm_solve_shared_ref,
     ruiz_equilibrate_shared as ruiz_ref)
 from cvxpygen_tpu_torch.ops.admm_shared_kernel import (
-    _cta_rows, admm_shared_solve, admm_shared_solve_plain, pick_shared_chunk,
-    shared_smem_bytes)
+    _cta_rows, _launch, admm_shared_solve, admm_shared_solve_plain,
+    pick_shared_chunk, ring_offset, shared_smem_bytes)
 from cvxpygen_tpu_torch.solvers import admm
 from cvxpygen_tpu_torch.solvers.admm_shared import (admm_solve_shared,
                                                     ruiz_equilibrate_shared,
@@ -288,19 +288,21 @@ def test_default_route_matches_reference(B, kernel):
 
 def test_card_layout_rule():
     """Instances per thread block on the card: the largest of 16, 8, 4, 2, 1
-    that divides the chunk and fits shared memory; the tensor-core products
-    take 16; a pinned layout that does not tile the chunk raises."""
+    that divides the chunk and fits shared memory; the warps' rings start on
+    16 bytes at every layout; a layout that does not tile the chunk or fit
+    raises before anything reaches the card."""
     n, m = 222, 252
     assert shared_smem_bytes(16, n, m) <= 232448 < shared_smem_bytes(24, n, m)
-    assert [_cta_rows(c, n, m, None, False) for c in (1024, 256, 8, 6, 1)] \
-        == [16, 16, 8, 2, 1]
-    assert _cta_rows(1024, n, m, 8, False) == 8
-    wide = _cta_rows(16, 1000, 1000, None, False)
+    assert [_cta_rows(c, n, m) for c in (1024, 256, 8, 6, 4, 2, 1)] \
+        == [16, 16, 8, 2, 4, 2, 1]
+    wide = _cta_rows(16, 1000, 1000)
     assert shared_smem_bytes(wide, 1000, 1000) <= 232448 \
         < shared_smem_bytes(2 * wide, 1000, 1000)
-    with pytest.raises(ValueError, match='tf32x3'):
-        _cta_rows(8, n, m, None, True)
-    with pytest.raises(ValueError, match='do not tile'):
-        _cta_rows(8, n, m, 16, False)
-    with pytest.raises(ValueError, match='exceed'):
-        _cta_rows(1024, 1000, 1000, 16, False)
+    for shape in ((n, m), (12, 18), (5, 3), (1000, 1000)):
+        assert all(ring_offset(r, *shape) % 4 == 0 for r in (16, 8, 4, 2, 1))
+    for rows, chunk, shape in ((16, 8, (n, m)), (3, 6, (n, m)),
+                               (16, 16, (1000, 1000))):
+        args = (None, torch.zeros((16, shape[0])),
+                torch.zeros((shape[1], shape[0]))) + (None,) * 11
+        with pytest.raises(ValueError, match='do not tile'):
+            _launch(args, dict(chunk=chunk, check_interval=15), rows)
