@@ -25,6 +25,13 @@ KERNEL is one of:
   runs of one call each after one; mean iterations and instances solved
   show what each computes.
 
+- k4: K4 (csrc/cr_solve.cu) at the charging T=1440 shape (B=256; the
+  checkout's chip_smoke.py set-up and its first factor, on right-hand
+  sides from a seeded generator): three runs of 50 launches after one.
+  Each run keeps its x under build/ab_k4/ and prints the largest |x|
+  difference to every other checkout's x kept there, so parent and change
+  show whether they compute the same bits.
+
 Builds that checkout's kernel, times it by CUDA events and prints one line
 per mode.  Needs a CUDA device."""
 import os
@@ -68,6 +75,40 @@ def time_k6(label):
           + ' ms per launch; d[0, :3] '
           + ' '.join(f'{v:.6e}' for v in fac['d'][0, :3].tolist()),
           flush=True)
+
+
+def time_k4(label, cs):
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.ops import banded_shared_kernel as k4
+    from cvxpygen_tpu_torch.runtime.solver import CompiledBandedQPSolver
+    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+    k4.build_cr_kernel()
+    prob = cs.charging_problem(ct)
+    fam = canonicalize(prob)
+    st = ADMMSettings(**cs.CHARGING_SETTINGS)
+    solver = CompiledBandedQPSolver(fam, settings=st, device='cuda')
+    theta = cs.charging_batch(fam, prob, cs.B_CHARGING)
+    args = cs.banded_args(solver, theta, st)
+    fac, meta = args[0], args[1]
+    nb, s, B = solver.struct.nb, solver.struct.s, theta.shape[0]
+    g = torch.Generator(device='cuda').manual_seed(0)
+    b = torch.randn((nb, s, B), generator=g, device='cuda')
+    x = k4.cr_solve(fac, meta, b)
+    means = [cuda_ms(lambda: k4.cr_solve(fac, meta, b), 50)[0]
+             for _ in range(3)]
+    # the x of every checkout run so far, beside this one's
+    keep = os.path.join(os.getcwd(), 'build', 'ab_k4')
+    os.makedirs(keep, exist_ok=True)
+    others = []
+    for name in sorted(os.listdir(keep)):
+        other = torch.load(os.path.join(keep, name)).cuda()
+        others.append(f'{name[:-3]} {float((x - other).abs().max()):.3e}')
+    torch.save(x.cpu(), os.path.join(keep, f'{label}.pt'))
+    print(f'# K4 {label}: ' + ' '.join(f'{m:.4f}' for m in means)
+          + f' ms per launch (nb={nb}, s={s}, B={B}); max |x| '
+          f'{float(x.abs().max()):.6e}; max |x - x of| '
+          + (', '.join(others) or 'none yet'), flush=True)
 
 
 def mpc_general(cs):
@@ -164,6 +205,8 @@ def main():
             sys.exit(f'imported {mod.__file__}, not the checkout {root}')
     if kernel == 'k6':
         time_k6(label)
+    elif kernel == 'k4':
+        time_k4(label, cs)
     elif kernel == 'k3':
         time_k3(label, cs)
     elif kernel == 'k2':
@@ -171,7 +214,7 @@ def main():
     elif kernel == 'k1':
         time_k1(label, cs)
     else:
-        sys.exit(f'unknown kernel {kernel!r}: k1, k2, k3 or k6')
+        sys.exit(f'unknown kernel {kernel!r}: k1, k2, k3, k4 or k6')
 
 
 if __name__ == '__main__':

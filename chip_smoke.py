@@ -69,10 +69,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    there) and with a second refinement sweep (every instance solved), both
    within the oracle parity bar; each launches its kernel;
 7. K4 (csrc/cr_solve.cu) against its plain version on the charging T=1440
-   factor of the shared path's first factorization (nb=541, s=8) at B=256,
-   on right-hand sides b = M x of random x ~ N(0, 1) (every entry of x of
-   order 1, so the bar sees each) and on a mid-solve call (x within
-   K4_TOL * max(1, |x|_inf)); K4's time, the plain version's, the bound and
+   factor of the shared path's first factorization (nb=541, s=8) at B = 1,
+   3, 256 and 2048 (K4_BATCHES), on right-hand sides b = M x of random
+   x ~ N(0, 1) (every entry of x of order 1, so the bar sees each), and on
+   a mid-solve call at B=256 (x within K4_TOL * max(1, |x|_inf)), each
+   bitwise equal on a second call and at every pinned group of instances
+   per thread block (1, 2, 4, 8); K4's time by group at B=256 and 2048, its
+   L2 bytes per call, the plain version's time, the bound and
    torch.cholesky_solve of the dense Cholesky factor of the same M;
 8. K5 (csrc/banded_chunk.cu) against its plain version on scaled MPC H=30
    data (nb=41, s=16, r_max=24) at B=256, from the zero start and from a
@@ -93,7 +96,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel's launches are
    those of one solve_batch at the bench's settings (the count set to 0
    just before it); where the time goes (each kernel's CUDA-event time
-   inside one more solve);
+   inside one more solve, in all and per launch);
 10. K6 (csrc/ldl_factor.cu), K7 (csrc/ldl_inverse.cu) and K8
    (csrc/ldl_solve.cu) against their plain versions on the KKT matrices that
    the entropy family's IPM solve hands K6 (n=32: N=161, Np=176, B=1024,
@@ -105,7 +108,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    within twice their plain versions' distance from the float64
    application of that factor, both per instance by max(1, |v|_inf) and
    by the median entry's relative error; the same at n=64 (N=321,
-   Np=336, B=64: K6's device-scratch path); K7 at B=70000 (above grid.y's
+   Np=336, B=64: K6's device-scratch path), K6's storage rule
+   (ops/ldl_kernel.py::factor_layout) held to the library's; K7 at
+   B=70000 (above grid.y's
    limit, two launches, N=7); each kernel's time, its plain version's,
    the library call's and the function's bound;
 11. the conic IPM main path at full width: the entropy family
@@ -223,6 +228,9 @@ N_ORACLE_MPC30 = 16
 # an x whose few huge entries (M's small eigenvalues) set the bar and hide
 # the others, so the random case solves for a known x ~ N(0, 1)
 K4_TOL = 1e-4
+# the batches K4 is held at: one instance, a partial group, the main batch
+# and 2048
+K4_BATCHES = (1, 3, B_CHARGING, 2048)
 # K5 against its plain version: x, z, y within K5_TOL * max(1, |v|_inf)
 # per instance; rp and rp_den within K5_TOL * max(1, rp_den), rd and rd_den
 # within K5_TOL * max(1, rd_den) (a residual is the norm of a difference of
@@ -1440,11 +1448,19 @@ def mid_solve_k4_call(solver, theta, settings, call):
     return seen[call]
 
 
+def k4_l2_bytes(nb_tot, nb, s, B, group):
+    """Bytes K4 moves through L2 in one call: b in and x out once, and
+    the factor once per thread block (ceil(B / group) blocks)."""
+    return 4.0 * (2 * nb * s * B + -(-B // group) * nb_tot * s * s)
+
+
 def compare_k4(solver, theta, settings, card):
     """K4 against its plain version on the charging factor of the shared
-    path's first factorization (random right-hand sides) and on a
-    mid-solve call; times of K4, the plain version, the bound and
-    torch.cholesky_solve of the dense Cholesky factor of the same M."""
+    path's first factorization (random right-hand sides at B = 1, 3, 256
+    and 2048, and a mid-solve call), bitwise equal on a second call and at
+    every pinned group; times of K4 by group at B = 256 and 2048, the plain
+    version, the bound and torch.cholesky_solve of the dense Cholesky
+    factor of the same M."""
     from cvxpygen_tpu_torch.ops import banded_shared_kernel as k45
     from cvxpygen_tpu_torch.ops.block_tridiag import bt_matvec
     from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
@@ -1454,15 +1470,17 @@ def compare_k4(solver, theta, settings, card):
     args = banded_args(solver, theta, settings)
     fac, meta, D_M, L_M = args[0], args[1], args[6], args[7]
     gen = torch.Generator(device=dev).manual_seed(0)
-    x_true = torch.randn((B, nb, s), generator=gen, device=dev,
+    x_true = torch.randn((K4_BATCHES[-1], nb, s), generator=gen, device=dev,
                          dtype=torch.float64)
     b_true = bt_matvec(D_M.double()[None], L_M.double()[None], x_true)
+    b_all = b_true.permute(1, 2, 0).float().contiguous()
     cases = [('b = M x of random x', fac, meta,
-              b_true.permute(1, 2, 0).float().contiguous())]
+              b_all[:, :, :nb_b].contiguous()) for nb_b in K4_BATCHES]
     cases.append(('mid-solve rhs (call 120)',)
                  + mid_solve_k4_call(solver, theta, settings, 120))
     max_abs = 0.0
     for name, f, m, b in cases:
+        Bc = b.shape[-1]
         x = k45.cr_solve(f, m, b)
         torch.cuda.synchronize()
         x_ref = k45.cr_solve_plain(f, m, b)
@@ -1474,11 +1492,35 @@ def compare_k4(solver, theta, settings, card):
         own = float(((x_ref.double() - x64).abs().amax(dim=(0, 1))
                      / scale.double()).max())
         max_abs = max(max_abs, float(err.max()))
-        print(f'# phase 7: K4 {name}, B={B}: max |dx| {float(err.max()):.3e}, '
-              f'max |dx|/max(1,|x|_inf) {viol:.3e} (bar {K4_TOL}); the plain '
-              f'version against float64: {own:.3e}')
+        again = torch.equal(k45.cr_solve(f, m, b), x)
+        groups = {g: torch.equal(k45.cr_solve(f, m, b, group=g), x)
+                  for g in (1, 2, 4, 8)}
+        plan = k45.cr_launch_plan(nb, s, Bc)
+        check(k45._LIB_CR.cr_solve_smem_bytes(nb, s, plan[0], plan[1])
+              == plan[2], f'K4 {name}: the shared-memory rule')
+        print(f'# phase 7: K4 {name}, B={Bc} (group {plan[0]}, steps of '
+              f'{plan[1]} block pairs, {plan[2]} B of shared memory): max '
+              f'|dx| {float(err.max()):.3e}, max |dx|/max(1,|x|_inf) '
+              f'{viol:.3e} (bar {K4_TOL}); the plain version against '
+              f'float64: {own:.3e}; a second call bitwise equal {again}; '
+              f'groups 1, 2, 4, 8 bitwise equal to it: '
+              + ', '.join(str(v) for v in groups.values()))
         check(viol <= K4_TOL, f'K4 {name}: {viol:.3e} > {K4_TOL}')
-    b = cases[0][3]
+        check(again and all(groups.values()),
+              f'K4 {name}: a second call or a pinned group differs')
+    # the group sweep: instances per thread block at the main batch and at
+    # 2048
+    for nb_b in (B, K4_BATCHES[-1]):
+        b = b_all[:, :, :nb_b].contiguous()
+        line = []
+        for g in (1, 2, 4, 8):
+            k45.cr_solve(fac, meta, b, group=g)             # warm
+            g_ms, _ = cuda_ms(lambda: k45.cr_solve(fac, meta, b, group=g),
+                              50)
+            line.append(f'{g}: {g_ms:.4f} ms')
+        print(f'# phase 7: K4 by group at B={nb_b}: ' + ', '.join(line)
+              + f' (the rule: {k45.cr_launch_plan(nb, s, nb_b)[0]}) [{card}]')
+    b = b_all[:, :, :B].contiguous()
     k45.cr_solve(fac, meta, b)                              # warm
     ms, _ = cuda_ms(lambda: k45.cr_solve(fac, meta, b), 50)
     k45.cr_solve_plain(fac, meta, b)                        # warm
@@ -1502,10 +1544,13 @@ def compare_k4(solver, theta, settings, card):
     lib_diff = float(((x_lib - x_k4).abs().amax(dim=0)
                       / torch.clamp(x_k4.abs().amax(dim=0), min=1.0)).max())
     bound_ms, bound_by, ops, nbytes = k4_bound(meta['total'], nb, s, B)
+    l2 = k4_l2_bytes(meta['total'], nb, s, B,
+                     k45.cr_launch_plan(nb, s, B)[0])
     print(f'# phase 7: K4 at nb={nb}, s={s}, B={B} ({meta["total"]} packed '
           f'blocks): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
           f'{bound_ms:.5f} ms ({bound_by}; {ops / 1e6:.1f} MFLOP, '
-          f'{nbytes / 1e6:.2f} MB), torch.cholesky_solve {lib_ms:.4f} ms '
+          f'{nbytes / 1e6:.2f} MB), L2 bytes per call {l2 / 1e6:.2f} MB, '
+          f'torch.cholesky_solve {lib_ms:.4f} ms '
           f'(max |dx|/max(1,|x|) to K4 {lib_diff:.2e}) [{card}]')
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
@@ -1665,8 +1710,9 @@ def kernel_share(solver, theta, name, card):
     k_ms = sum(a.elapsed_time(b) for a, b in events)
     print(f'# phase 9: where the time goes, B={theta.shape[0]}: {wall:.3f} ms '
           f'per batch, of which {name} {k_ms:.3f} ms in {len(events)} '
-          f'launches (CUDA events), the rest {wall - k_ms:.3f} ms (torch '
-          f'set-up, matvecs, checks and host) [{card}]')
+          f'launches ({k_ms / max(1, len(events)):.4f} ms per launch; CUDA '
+          f'events), the rest {wall - k_ms:.3f} ms (torch set-up, matvecs, '
+          f'checks and host) [{card}]')
 
 
 def gate_banded(name, out, refs, dt, launches, first_iters, card,
@@ -2200,9 +2246,13 @@ def phase_conic(card, dev='cuda'):
     err_first, apply_first = compare_ldl(K0, s0, dd,
                                          'first iteration, Np=176')
     compare_ldl(KL, sL, dd, 'first iteration, Np=336 (device scratch)')
-    check(lk._LIB_FACTOR.ldl_factor_smem_bytes(336) == 0
-          and lk._LIB_FACTOR.ldl_factor_smem_bytes(176) > 0,
-          'K6 storage rule')
+    for N in (K0.shape[1], KL.shape[1]):
+        lay = lk.factor_layout(N)
+        check(lk._LIB_FACTOR.ldl_factor_smem_bytes(lay['Np'], lay['p'])
+              == lay['smem_bytes'], f'K6 storage rule at N={N}')
+    check(lk.factor_layout(K0.shape[1])['resident']
+          and not lk.factor_layout(KL.shape[1])['resident'],
+          'K6: tiles in shared memory at Np=176, a device scratch at 336')
     # the last K: the two float32 factors differ by up to about 5e-4 (d)
     # there, so both are held to the float64 factor
     compare_ldl(K1, s0, dd, "each instance's last iteration, Np=176",

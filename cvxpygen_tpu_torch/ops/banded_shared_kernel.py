@@ -25,24 +25,29 @@ tensor (ops/banded_grouped.pack_cr_levels).  Two kernels use that factor:
   ``banded_iterate``), which the reference ships but no solver calls; no
   solver of the port calls it either.  CUDA source: csrc/banded_iterate.cu.
 
-All three share the CR solve of csrc/cr.cuh.  Each wrapper runs its plain
-torch version (``cr_solve_plain``, ``banded_shared_chunk_plain``,
-``banded_iterate_plain``, the same arithmetic) on CPU tensors and launches its CUDA kernel (float32, built
+K5 and K11 share the one-instance CR solve of csrc/cr.cuh; K4 has its
+own (instances in groups, the factor staged per group).  Each wrapper
+runs its plain torch version (``cr_solve_plain``,
+``banded_shared_chunk_plain``, ``banded_iterate_plain``, the same
+arithmetic) on CPU tensors and launches its CUDA kernel (float32, built
 with nvcc at first use, bound with ctypes, one count per launch in
 ``.launches``) on CUDA tensors, or raises: there is no fallback.
 
 Layouts are the JAX wrappers': x/q/b (nb, s, B); z/y/l/u (nb, r_max, B);
 D (nb, s), E/E_inv/rho (nb, r_max) shared; done (1, 1, B) int32; flags
 bit-packed 1 ok, 2 p_inf, 4 d_inf.  The reference tiles the batch into
-VMEM-sized chunks (its ``pick_banded_chunk``); nothing in either kernel
-depends on the tiling, because every decision that couples instances
-(done, adaptive rho, refactorization) is the solve loop's, over the whole
-batch.  So the CUDA launches take one thread block per instance, and the
-port has no chunk argument.
+VMEM-sized chunks (its ``pick_banded_chunk``); nothing in any of the
+kernels depends on the tiling, because every decision that couples
+instances (done, adaptive rho, refactorization) is the solve loop's, over
+the whole batch.  So the port has no chunk argument: K5 and K11 take one
+thread block per instance, and K4 a group of 1-8 consecutive instances
+per block (``pick_cr_group``), which shares each read of the factor and
+changes no bit of the answer.
 
 What bounds them on the card: K4 is bytes-bound (b in, x out and the
-factor once: 9.6 MB against 89 MFLOP at charging T=1440, B=256), so launch
-latency and the level-by-level barriers dominate a simple kernel.  K5 is
+factor once: 9.6 MB against 89 MFLOP at charging T=1440, B=256); its
+dependent levels and the factor's trips from L2 set its time, so its
+groups stage the factor through shared memory (csrc/cr_solve.cu).  K5 is
 bound by operations on paper, but this first design reads the shared
 factor and the grouped A from L2 for every instance and iteration (about
 0.5 MB per instance-iteration at MPC H=30), and the latency of those reads
@@ -51,6 +56,7 @@ bounds it.  See the notes in the CUDA sources.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -62,7 +68,19 @@ _SMEM_LIMIT = 232448
 # levels csrc/cr.cuh takes (nb < 2**32)
 _MAX_LEVELS = 32
 
+# K4's launch (csrc/cr_solve.cu): threads per block, (block, row) pairs per
+# thread and step, words between two state blocks, factor stages times
+# factor kinds per step, and the static level table's bytes
+_CR_THREADS = 256
+_CR_PAIRS = 2
+_CR_PAD = 4
+_CR_STAGE_SLOTS = 3 * 3
+_CR_STATIC = 4 * 10 * _MAX_LEVELS
+_CR_GROUPS = (1, 2, 4, 8)
+
 _LIB_CR = None
+_CR_READY = set()       # devices whose K4 kernels may take the smem limit
+_CR_TABLES = {}         # (nb, s, root, total) -> ctypes level table
 _LIB_CHUNK = None
 _LIB_ITERATE = None
 
@@ -113,6 +131,56 @@ def cr_smem_words(nb, s):
     the padded block count and the stack of every level's odd blocks."""
     stack = sum(shp['n2'] for shp in cr_level_shapes(nb)) * s
     return 2 * (nb + nb % 2) * s + stack
+
+
+def pick_cr_group(B, sms=132):
+    """K4's instances per thread block for a batch of B on a card of
+    ``sms`` SMs: the fewest (1, 2, 4 or 8) that fit the batch in one wave
+    of one block per SM, else 8.  One block per SM is what K4's shared
+    memory allows at charging.  On the H100 (132 SMs) at charging T=1440
+    (chip_smoke.py phase 7) that is 1 at B=1 and 3 (the fastest there), 2
+    at B=256 (as fast as 4, twice as fast as 1) and 8 at B=2048 (the
+    fastest)."""
+    g = 1
+    while g < 8 and -(-B // g) > sms:
+        g *= 2
+    return g
+
+
+def cr_group_smem_bytes(nb, s, group, tile):
+    """Dynamic shared memory of one K4 block (csrc/cr_solve.cu
+    ``smem_bytes``): the state of ``group`` instances (nb blocks of s rows
+    of ``group``-wide vectors, _CR_PAD words apart) and three stages of
+    three factor slots of ``tile`` s x s blocks each."""
+    return 4 * (nb * (s * group + _CR_PAD)
+                + _CR_STAGE_SLOTS * tile * s * s)
+
+
+@functools.lru_cache(maxsize=None)
+def cr_launch_plan(nb, s, B, group=None, sms=132):
+    """K4's launch for b (nb, s, B) on a card of ``sms`` SMs: (group, tile,
+    smem bytes).  ``group`` instances per thread block (``pick_cr_group``
+    unless pinned; a smaller one where the state does not fit), so
+    ceil(B / group) blocks, the last one partial when group does not
+    divide B; ``tile`` block pairs per step, as many as the threads take
+    (two pairs each) and shared memory holds.  Raises ValueError when no
+    plan fits."""
+    if s % 4:
+        raise ValueError(f'CR solve kernel: s={s} is not a multiple of 4')
+    if group is not None and group not in _CR_GROUPS:
+        raise ValueError(f'CR solve kernel: group={group} is not one of '
+                         f'{_CR_GROUPS}')
+    cap = pick_cr_group(B, sms) if group is None else group
+    max_tile = _CR_PAIRS * _CR_THREADS // s
+    for g in [g for g in reversed(_CR_GROUPS) if g <= cap]:
+        words = (_SMEM_LIMIT - _CR_STATIC) // 4 - nb * (s * g + _CR_PAD)
+        tile = min(max_tile, words // (_CR_STAGE_SLOTS * s * s))
+        if tile >= 1:
+            return g, tile, cr_group_smem_bytes(nb, s, g, tile)
+        if group is not None:
+            break
+    raise ValueError(f'CR solve kernel: nb={nb}, s={s} does not fit shared '
+                     f'memory at {cap} instances per block')
 
 
 def chunk_smem_words(nb, s, r_max):
@@ -355,7 +423,11 @@ def banded_iterate_plain(fac_packed, meta, B0, B1, D_M, L_M, rho_g, q, l, u,
 def _bind_cr(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.cr_solve_f32.restype = I
-    lib.cr_solve_f32.argtypes = [P, P, P, I, P, P]
+    lib.cr_solve_f32.argtypes = [P, P, P, I, P, I, I, P]
+    lib.cr_solve_smem_bytes.restype = ctypes.c_longlong
+    lib.cr_solve_smem_bytes.argtypes = [I, I, I, I]
+    lib.cr_solve_init.restype = I
+    lib.cr_solve_init.argtypes = []
 
 
 def _bind_chunk(lib):
@@ -397,9 +469,21 @@ def build_iterate_kernel(verbose=False):
     return secs
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _meta_ptr(meta, nb, s):
-    arr = cr_meta_array(meta, nb, s)
-    return (ctypes.c_int * len(arr))(*arr)
+    """The ctypes level table of cr_meta_array, built once per packed
+    structure (the metadata of pack_cr_levels follows from nb alone, and
+    its root and total offsets tell two structures apart)."""
+    key = (nb, s, meta['root'], meta['total'])
+    arr = _CR_TABLES.get(key)
+    if arr is None:
+        vals = cr_meta_array(meta, nb, s)
+        arr = _CR_TABLES[key] = (ctypes.c_int * len(vals))(*vals)
+    return arr
 
 
 def _in_place(t, name, shape, dev):
@@ -413,11 +497,13 @@ def _in_place(t, name, shape, dev):
     return t
 
 
-def cr_solve(fac_packed, meta, b):
+def cr_solve(fac_packed, meta, b, group=None):
     """Shared-factor CR solve for a batch of right-hand sides (K4):
     fac_packed (NB_TOT, s, s) from pack_cr_levels, b (nb, s, B); returns
-    x (nb, s, B).  CPU tensors run ``cr_solve_plain``; CUDA tensors launch
-    the kernel (float32) or raise."""
+    x (nb, s, B).  ``group`` pins the instances per thread block (1, 2, 4
+    or 8; ``cr_launch_plan``'s rule by default); no bit of x depends on it.
+    CPU tensors run ``cr_solve_plain``; CUDA tensors launch the kernel
+    (float32) or raise."""
     if b.device.type == 'cpu':
         return cr_solve_plain(fac_packed, meta, b)
     if b.device.type != 'cuda':
@@ -426,16 +512,21 @@ def cr_solve(fac_packed, meta, b):
     dev = b.device
     fac = checked(fac_packed, 'fac_packed', (meta['total'], s, s), dev)
     b = checked(b, 'b', (nb, s, B), dev)
-    if 4 * cr_smem_words(nb, s) > _SMEM_LIMIT:
-        raise ValueError(f'CR solve kernel: nb={nb}, s={s} does not fit '
-                         'shared memory')
-    build_cr_kernel()
+    g, tile, _ = cr_launch_plan(nb, s, B, group, _sm_count(dev))
+    if _LIB_CR is None:
+        build_cr_kernel()
     x = torch.empty_like(b)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
+        if dev.index not in _CR_READY:
+            err = _LIB_CR.cr_solve_init()
+            if err != 0:
+                raise RuntimeError(f'cr_solve kernel set-up failed: CUDA '
+                                   f'error {err}')
+            _CR_READY.add(dev.index)
         err = _LIB_CR.cr_solve_f32(fac.data_ptr(), b.data_ptr(),
                                    x.data_ptr(), B, _meta_ptr(meta, nb, s),
-                                   stream)
+                                   g, tile, stream)
     if err != 0:
         raise RuntimeError(f'cr_solve kernel launch failed: CUDA error {err}')
     cr_solve.launches += 1

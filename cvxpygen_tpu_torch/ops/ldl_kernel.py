@@ -38,9 +38,10 @@ lower triangle of K in, L out; K7: the lower triangle of L in, Kinv out;
 K8: the lower triangle of L in); K9 and K10 operations, narrowly (N^3
 FLOP against the lower triangle of K in, Kinv out).  No batch padding:
 every instance is independent in all five kernels, so no block size
-changes an answer.  K6 keeps an instance's working matrix in
-shared memory up to Np = 224 (the largest multiple of the 16-wide panel
-that fits) and in a device scratch the wrapper allocates above that.
+changes an answer.  K6 keeps an instance's lower triangle as 16 x 16
+tiles in shared memory up to Np = 320 (three blocks per SM at the entropy
+shape, Np = 176) and in a device scratch the wrapper allocates above that
+(``factor_layout``).
 """
 from __future__ import annotations
 
@@ -61,8 +62,20 @@ _LIB_FI = None
 # 128 blocks of 512 threads, one per SM (chip_smoke.py phase 12 times 8, 4
 # and 2)
 FI_GROUP = 8
+_SIGNS = {}             # (padded signs, device) -> their tensor
 # K7's grid is (column tiles, instances); grid.y takes at most 65535
 _GRID_Y = 65535
+# K6 (csrc/ldl_factor.cu): the tiles of the lower triangle are 16 x 16
+# floats; its static shared memory (two panels' Minv and pivots); the per-block
+# limit; an SM's shared memory and the 1 KB the card reserves per block;
+# its threads per block and an SM's threads
+_TILE = 16
+_K6_STATIC = 2 * 4 * (16 * 16 + 16)
+_SMEM_LIMIT = 232448
+_SM_SMEM = 233472
+_SM_BLOCK_RESERVE = 1024
+_K6_THREADS = 256
+_SM_THREADS = 2048
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +108,25 @@ def ldl_kinv_plain(K, signs, dyn_delta, panel: int = 16):
     identity; returns the inverse (B, N, N) of the pivot-regularized K."""
     return ldl_inverse(ldl_factor(K, panel=panel, signs=signs,
                                   dyn_delta=dyn_delta))
+
+
+def factor_layout(N, panel: int = 16):
+    """K6's layout for K (B, N, N) (csrc/ldl_factor.cu): the panel p, Np,
+    the 16 x 16 tiles of the lower triangle (``tiles``; tile (I, J), J <=
+    I, at float (I (I + 1) / 2 + J) * 256), the dynamic shared memory of
+    one block (``smem_bytes``, 0 when the tiles live in a device scratch)
+    and the thread blocks an SM holds at once (``blocks_per_sm``)."""
+    p, Np = _dims(N, panel)
+    nbp = Np // p
+    tiles = nbp * (nbp + 1) // 2
+    words = tiles * _TILE * _TILE
+    resident = 4 * words + _K6_STATIC <= _SMEM_LIMIT
+    smem = 4 * words if resident else 0
+    per_block = smem + _K6_STATIC + _SM_BLOCK_RESERVE
+    return dict(p=p, Np=Np, nbp=nbp, tiles=tiles, tile_words=words,
+                resident=resident, smem_bytes=smem,
+                blocks_per_sm=min(_SM_THREADS // _K6_THREADS,
+                                  _SM_SMEM // per_block))
 
 
 def ldl_factor_inverse_plain(K, signs, dyn_delta, panel: int = 16):
@@ -188,7 +220,9 @@ def _bind_factor(lib):
     lib.ldl_factor_f32.restype = I
     lib.ldl_factor_f32.argtypes = [P, I, I, I, I, P, F, P, P, P, P, P]
     lib.ldl_factor_smem_bytes.restype = ctypes.c_longlong
-    lib.ldl_factor_smem_bytes.argtypes = [I]
+    lib.ldl_factor_smem_bytes.argtypes = [I, I]
+    lib.ldl_factor_tile_words.restype = ctypes.c_longlong
+    lib.ldl_factor_tile_words.argtypes = [I, I]
 
 
 def _bind_inverse(lib):
@@ -266,9 +300,18 @@ def _cuda_device(t, what):
 
 
 def _signs_on(signs, N, Np, dev):
-    """The padded pivot signs as a float32 tensor on ``dev``."""
-    return torch.as_tensor(padded_signs(signs, N, Np), dtype=torch.float32,
-                           device=dev)
+    """The padded pivot signs as a float32 tensor on ``dev``, uploaded once
+    per sign pattern and device: a copy from host memory would synchronize
+    the stream on every launch."""
+    arr = padded_signs(signs, N, Np)
+    key = (arr.tobytes(), str(dev))
+    t = _SIGNS.get(key)
+    if t is None:
+        if len(_SIGNS) >= 64:
+            _SIGNS.clear()
+        t = _SIGNS[key] = torch.as_tensor(arr, dtype=torch.float32,
+                                          device=dev)
+    return t
 
 
 def _raise_on(err, what):
@@ -292,11 +335,13 @@ def ldl_factor_kernel(K, signs, dyn_delta, panel: int = 16):
     L = torch.empty((B, Np, Np), dtype=torch.float32, device=dev)
     d = torch.empty((B, Np), dtype=torch.float32, device=dev)
     Linv = torch.empty((B, Np, p), dtype=torch.float32, device=dev)
-    # the working matrix stays in shared memory when it fits, else in a
-    # device scratch (same kernel, csrc/ldl_factor.cu)
+    # the tiles stay in shared memory when they fit, else in a device
+    # scratch (same kernel, csrc/ldl_factor.cu)
+    lay = factor_layout(N, panel)
     scratch = None
-    if _LIB_FACTOR.ldl_factor_smem_bytes(Np) == 0:
-        scratch = torch.empty((B, Np, Np), dtype=torch.float32, device=dev)
+    if not lay['resident']:
+        scratch = torch.empty((B, lay['tile_words']), dtype=torch.float32,
+                              device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _LIB_FACTOR.ldl_factor_f32(

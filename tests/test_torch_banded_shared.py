@@ -222,3 +222,138 @@ def test_engine_switch_follows_block_count(batch, monkeypatch):
         kernel.banded_shared_chunk_plain(
             *_chunk_args(batch), torch.zeros((1, 1, B), dtype=torch.int32),
             **dict(CHUNK_KW, kkt_refine=1))
+
+
+# ---------------------------------------------------------------------------
+# kernel K4's launch plan and its in-place strided state (csrc/cr_solve.cu)
+# ---------------------------------------------------------------------------
+
+def _random_cr(nb, s, seed):
+    """The packed CR factor of a random SPD block-tridiagonal M, float64."""
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((1, nb, s, s))
+    D = D @ np.swapaxes(D, 2, 3) + 4 * s * np.eye(s)
+    L = 0.3 * rng.standard_normal((1, nb - 1, s, s))
+    return pack_cr_levels(cr_factor(_t(D), _t(L)))
+
+
+@pytest.mark.parametrize('B', [1, 3, 256, 2048])
+def test_cr_group_rule_covers_the_batch(B):
+    """K4's plan at charging (nb=541, s=8) and at nb=97: ceil(B / group)
+    thread blocks cover every instance once (the last group partial where
+    group does not divide B), a step's pairs fit the threads, and shared
+    memory fits the per-block limit; a pinned group that does not fit is
+    refused."""
+    for nb in (97, 541):
+        g, tile, smem = kernel.cr_launch_plan(nb, 8, B)
+        assert g in (1, 2, 4, 8) and g <= kernel.pick_cr_group(B)
+        blocks = -(-B // g)
+        covered = np.concatenate([np.arange(j * g, min(B, j * g + g))
+                                  for j in range(blocks)])
+        assert np.array_equal(covered, np.arange(B))
+        assert 1 <= tile and tile * 8 <= 2 * 256
+        assert smem == kernel.cr_group_smem_bytes(nb, 8, g, tile)
+        assert smem + 4 * 10 * 32 <= 232448
+    with pytest.raises(ValueError, match='does not fit'):
+        kernel.cr_launch_plan(2000, 64, B, group=8)
+
+
+def test_cr_meta_table_is_cached():
+    """The ctypes level table of a packed structure is built once: it
+    equals a fresh cr_meta_array for nb 97 and 541, a second call returns
+    the same table, and the other structure has its own."""
+    tables = {}
+    for nb in (97, 541):
+        _, meta = _random_cr(nb, 8, nb)
+        arr = kernel._meta_ptr(meta, nb, 8)
+        assert list(arr) == kernel.cr_meta_array(meta, nb, 8)
+        assert kernel._meta_ptr(meta, nb, 8) is arr
+        tables[nb] = arr
+    assert list(tables[97]) != list(tables[541])
+
+
+def _cr_solve_strided(fac, meta, b, tile):
+    """csrc/cr_solve.cu's schedule on one state buffer: level k's block m
+    at position m << k; the forward sweep writes b' over the even block and
+    leaves the odd one in place, the root solve writes x_0 over block 0, the
+    backward sweep writes x over the odd blocks (the padding block
+    skipped).  Each step reads its factor blocks from a stage filled by the
+    kernel's copy ranges (pair t at t - t0)."""
+    nb, s, _ = b.shape
+    arr = kernel.cr_meta_array(meta, nb, s)
+    n_levels, root = arr[0], arr[1]
+    lv = [arr[4 + 10 * k:14 + 10 * k] for k in range(n_levels)]
+    st = b.clone()
+    nan = float('nan')
+
+    def stage(ranges, t0):
+        """slots of `tile` blocks: (global first block, local first, count)
+        per slot"""
+        slots = torch.full((3, tile, s, s), nan, dtype=fac.dtype)
+        for q, (g0, l0, cnt) in enumerate(ranges):
+            if cnt > 0:
+                slots[q, l0:l0 + cnt] = fac[g0:g0 + cnt]
+        return slots
+
+    for k in range(n_levels):
+        nb_in, n2, oD, oA, nA, oC, oLl, nLl, oLe, _ = lv[k]
+        for t0 in range(0, n2, tile):
+            t1 = min(t0 + tile, n2)
+            lo, hi = max(t0, 1), min(t1, nA + 1)
+            sl = stage([(oA + lo - 1, lo - t0, hi - lo),
+                        (oC + t0, 0, t1 - t0)], t0)
+            for t in range(t0, t1):
+                acc = st[(2 * t) << k].clone()
+                if t >= 1 and t - 1 < nA:
+                    acc -= sl[0, t - t0] @ st[(2 * t - 1) << k]
+                if 2 * t + 1 < nb_in:
+                    acc -= sl[1, t - t0] @ st[(2 * t + 1) << k]
+                st[(2 * t) << k] = acc
+    st[0] = stage([(root, 0, 1)], 0)[0, 0] @ st[0]
+    for k in reversed(range(n_levels)):
+        nb_in, n2, oD, oA, nA, oC, oLl, nLl, oLe, _ = lv[k]
+        for t0 in range(0, n2, tile):
+            t1 = min(t0 + tile, n2)
+            sl = stage([(oLe + t0, 0, t1 - t0),
+                        (oLl + t0, 0, min(t1, nLl) - t0),
+                        (oD + t0, 0, t1 - t0)], t0)
+            for t in range(t0, t1):
+                if 2 * t + 1 >= nb_in:
+                    continue
+                r = st[(2 * t + 1) << k] - sl[0, t - t0] @ st[(2 * t) << k]
+                if t < nLl:
+                    r = r - sl[1, t - t0].T @ st[(2 * t + 2) << k]
+                st[(2 * t + 1) << k] = sl[2, t - t0] @ r
+    return st
+
+
+@pytest.mark.parametrize('nb', [97, 541])
+def test_cr_strided_state_matches_plain(nb):
+    """The in-place strided schedule of K4 (steps of 5 block pairs, so a
+    level spans several steps) gives cr_solve_plain's x, float64."""
+    packed, meta = _random_cr(nb, 8, nb)
+    b = _t(np.random.default_rng(1).standard_normal((nb, 8, 3)))
+    x = _cr_solve_strided(packed, meta, b, tile=5)
+    np.testing.assert_allclose(x.numpy(),
+                               kernel.cr_solve_plain(packed, meta, b).numpy(),
+                               rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B', [1, 5, 64])
+def test_cr_solve_kernel_matches_plain_on_card(B):
+    """On a card, K4 at its own group and at every pinned group against
+    its plain version (1e-4 of max(1, |x|_inf) per instance), the groups
+    and a second call bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the card: chip_smoke.py phase 7)')
+    packed, meta = _random_cr(97, 8, 3)
+    fac = packed.float().cuda()
+    b = torch.tensor(np.random.default_rng(B).standard_normal((97, 8, B)),
+                     dtype=torch.float32, device='cuda')
+    x = kernel.cr_solve(fac, meta, b)
+    ref = kernel.cr_solve_plain(fac, meta, b)
+    scale = torch.clamp(ref.abs().amax(dim=(0, 1)), min=1.0)
+    assert float(((x - ref).abs().amax(dim=(0, 1)) / scale).max()) <= 1e-4
+    for g in (1, 2, 4, 8):
+        assert torch.equal(kernel.cr_solve(fac, meta, b, group=g), x)

@@ -163,3 +163,125 @@ def test_small_n_panel_and_padding():
     assert torch.equal(fac['d'][:, 18:], torch.ones(2, 14, dtype=torch.float64))
     assert torch.equal(fac['L'][:, 18:, 18:],
                        torch.eye(14, dtype=torch.float64).expand(2, 14, 14))
+
+
+# ---------------------------------------------------------------------------
+# kernel K6's layout (csrc/ldl_factor.cu)
+# ---------------------------------------------------------------------------
+
+def _tile_ij(q):
+    """csrc/ldl_factor.cu::tile_ij: the float32 estimate, then the integer
+    correction."""
+    i = int((np.sqrt(np.float32(8 * q + 1), dtype=np.float32)
+             - np.float32(1)) * np.float32(0.5))
+    while (i + 1) * (i + 2) // 2 <= q:
+        i += 1
+    while i * (i + 1) // 2 > q:
+        i -= 1
+    return i, q - i * (i + 1) // 2
+
+
+@pytest.mark.parametrize('N,Np,resident,per_sm', [(16, 16, True, 8),
+                                                  (161, 176, True, 3),
+                                                  (321, 336, False, 8)])
+def test_factor_layout_rule(N, Np, resident, per_sm):
+    """K6's tiles of the lower triangle: row-order offsets that cover the
+    tiles once, back to back, and the kernel's q -> (I, J) map; the
+    shared-memory path where the tiles fit (three blocks per SM at the
+    entropy shape) and the device scratch at the n = 64 twin."""
+    lay = ldl_kernel.factor_layout(N)
+    nbp = Np // 16
+    assert (lay['p'], lay['Np'], lay['nbp']) == (16, Np, nbp)
+    assert lay['tiles'] == nbp * (nbp + 1) // 2
+    # the kernel's row-order offsets, csrc/ldl_factor.cu::tile
+    offs = [(I * (I + 1) // 2 + J) * 256 for I in range(nbp)
+            for J in range(I + 1)]
+    assert offs == [256 * q for q in range(lay['tiles'])]
+    assert [_tile_ij(q) for q in range(lay['tiles'])] == [
+        (I, J) for I in range(nbp) for J in range(I + 1)]
+    # the kernel's swizzle of a tile's 16-byte chunks is a permutation
+    sw = [r * 16 + ((((c >> 2) ^ (r >> 2)) & 3) << 2) + (c & 3)
+          for r in range(16) for c in range(16)]
+    assert sorted(sw) == list(range(256))
+    assert lay['resident'] is resident
+    assert lay['smem_bytes'] == (4 * lay['tile_words'] if resident else 0)
+    assert lay['blocks_per_sm'] == per_sm
+
+
+def _factor_tiled(K, signs, dd, p=16):
+    """csrc/ldl_factor.cu's schedule on 16 x 16 tiles of the lower triangle
+    (one instance, float64): the panel's elimination in the tile, L21 =
+    A21 Minv in place, the trailing update of the lower tiles only, then L
+    assembled from the tiles.  Returns L, d, Linv."""
+    N = K.shape[0]
+    nbp = -(-N // p)
+    Np = nbp * p
+    Kp = torch.eye(Np, dtype=K.dtype)
+    Kp[:N, :N] = K
+    sg = np.concatenate([signs, np.ones(Np - N)])
+    tiles = {(I, J): Kp[I * p:I * p + p, J * p:J * p + p].clone()
+             for I in range(nbp) for J in range(I + 1)}
+    for I in range(nbp):
+        tiles[I, I] = torch.tril(tiles[I, I])
+    d = torch.zeros(Np, dtype=K.dtype)
+    V = torch.zeros((Np, p), dtype=K.dtype)
+    for k in range(nbp):
+        T = tiles[k, k]
+        dk = torch.zeros(p, dtype=K.dtype)
+        for j in range(p):
+            v = float(sg[k * p + j]) * T[j, j]
+            dj = float(sg[k * p + j]) * (dd if v < dd else v)
+            dk[j] = dj
+            cr = T[:, j] / dj
+            for r in range(j + 1, p):
+                T[r, j + 1:r + 1] -= dj * cr[r] * cr[j + 1:r + 1]
+            T[j + 1:, j] = cr[j + 1:]
+            T[j, j] = 1.0
+        X = torch.eye(p, dtype=K.dtype)
+        for j in range(p):
+            X[j + 1:] -= T[j + 1:, j:j + 1] * X[j]
+        d[k * p:k * p + p] = dk
+        V[k * p:k * p + p] = X
+        minv = X.T / dk[None, :]
+        for I in range(k + 1, nbp):
+            tiles[I, k] = tiles[I, k] @ minv
+        for I in range(k + 1, nbp):
+            for J in range(k + 1, I + 1):
+                upd = (tiles[I, k] * dk) @ tiles[J, k].T
+                tiles[I, J] -= torch.tril(upd) if I == J else upd
+    L = torch.zeros((Np, Np), dtype=K.dtype)
+    for (I, J), T in tiles.items():
+        L[I * p:I * p + p, J * p:J * p + p] = T
+    return L, d, V
+
+
+@pytest.mark.parametrize('N,nblk', [(12, 5), (40, 17)])
+def test_tiled_factor_matches_plain(N, nblk):
+    """K6's tile schedule gives ldl_factor_plain's L, d and Linv, float64
+    (one panel at N=12, three at N=40)."""
+    rng = np.random.default_rng(7)
+    K, signs = _quasidefinite(2, N, nblk, rng)
+    ref = ldl_kernel.ldl_factor_plain(torch.tensor(K), signs, 1e-9)
+    for b in range(2):
+        L, d, V = _factor_tiled(torch.tensor(K[b]), signs, 1e-9,
+                                p=min(16, N))
+        _close(L, ref['L'][b])
+        _close(d, ref['d'][b])
+        _close(V, ref['Linv'][b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N', [7, 12, 40, 161])
+def test_factor_kernel_matches_plain_on_card(N):
+    """On a card, K6 against its plain version on a quasidefinite batch:
+    L, d and Linv within 1e-4 of max(1, |v|_inf) per instance."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the card: chip_smoke.py phase 10)')
+    K, signs = _quasidefinite(5, N, N // 3, np.random.default_rng(N))
+    Kc = torch.tensor(K, dtype=torch.float32, device='cuda')
+    fac = ldl_kernel.ldl_factor_kernel(Kc, signs, 1e-4)
+    ref = ldl_kernel.ldl_factor_plain(Kc, signs, 1e-4)
+    for key in ('L', 'd', 'Linv'):
+        a, r = fac[key].double().flatten(1), ref[key].double().flatten(1)
+        scale = torch.clamp(r.abs().amax(dim=1), min=1.0)
+        assert float(((a - r).abs().amax(dim=1) / scale).max()) <= 1e-4, key
