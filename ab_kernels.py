@@ -32,8 +32,25 @@ KERNEL is one of:
   difference to every other checkout's x kept there, so parent and change
   show whether they compute the same bits.
 
+- k7: K7 (csrc/ldl_inverse.cu) at the entropy family's shape (B=1024,
+  N=161) on K6's factor of k6's seeded K: three runs of 20 launches after
+  three; the lower triangle of Kinv is kept under build/ab_k7/ and each
+  run prints its largest difference to every other checkout's kept there;
+  then the entropy batch (the checkout's chip_smoke.py set-up, n=32,
+  B=1024) solved through K6 + K7 with c drawn from default_rng(5), (6)
+  and (7): for each seed, the instances solved, the mean and largest
+  iterations and the parity against logsumexp(c).  Where one checkout's
+  K7 computes the upper triangle and the other mirrors the lower one,
+  this shows what the mirror does to the solve.
+- k5: K5 (csrc/banded_chunk.cu) at MPC H=30, B=2048 (the checkout's
+  chip_smoke.py set-up, 15 iterations from the start state): three runs
+  of 5 launches after one; x, z, y, the residuals and the flags are kept
+  under build/ab_k5/ and compared the same way; then one solve_batch of
+  the MPC H=30 batch through the checkout's engine, its mean iterations.
+
 Builds that checkout's kernel, times it by CUDA events and prints one line
-per mode.  Needs a CUDA device."""
+per mode.  Needs a CUDA device.  Delete build/ab_k4, build/ab_k5 and
+build/ab_k7 before a new A/B."""
 import os
 import sys
 
@@ -52,9 +69,24 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps, out
 
 
-def time_k6(label):
-    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
-    lk.build_factor_kernel()
+def keep_and_compare(name, label, outs):
+    """Keeps this run's outputs under build/<name>/ and returns the largest
+    absolute difference to every other checkout's kept there."""
+    keep = os.path.join(os.getcwd(), 'build', name)
+    os.makedirs(keep, exist_ok=True)
+    others = []
+    for fname in sorted(os.listdir(keep)):
+        other = torch.load(os.path.join(keep, fname))
+        diff = max(float((a.cpu().double() - b.double()).abs().max())
+                   for a, b in zip(outs, other))
+        others.append(f'{fname[:-3]} {diff:.3e}')
+    torch.save([t.cpu() for t in outs], os.path.join(keep, f'{label}.pt'))
+    return ', '.join(others) or 'none yet'
+
+
+def entropy_kkt():
+    """A seeded quasidefinite batch of the entropy family's KKT shape
+    (B=1024, N=161): [[G G' + I, C'], [C, -I]], and its pivot signs."""
     rng = np.random.default_rng(0)
     B, N, nb = 1024, 161, 64
     P = rng.standard_normal((B, nb, nb))
@@ -65,7 +97,13 @@ def time_k6(label):
     K[:, :nb, nb:] = np.swapaxes(Bb, 1, 2)
     K[:, nb:, nb:] = -np.eye(N - nb)
     signs = np.concatenate([np.ones(nb), -np.ones(N - nb)])
-    Kc = torch.tensor(K, dtype=torch.float32, device='cuda')
+    return torch.tensor(K, dtype=torch.float32, device='cuda'), signs
+
+
+def time_k6(label):
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    lk.build_factor_kernel()
+    Kc, signs = entropy_kkt()
     for _ in range(3):
         fac = lk.ldl_factor_kernel(Kc, signs, 1e-4)
     torch.cuda.synchronize()
@@ -75,6 +113,86 @@ def time_k6(label):
           + ' ms per launch; d[0, :3] '
           + ' '.join(f'{v:.6e}' for v in fac['d'][0, :3].tolist()),
           flush=True)
+
+
+def time_k7(label, cs):
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    from cvxpygen_tpu_torch.runtime.solver import CompiledConicSolver
+    from cvxpygen_tpu_torch.solvers.ipm import IPMSettings
+    lk.build_factor_kernel()
+    lk.build_inverse_kernel()
+    Kc, signs = entropy_kkt()
+    fac = lk.ldl_factor_kernel(Kc, signs, 1e-4)
+    for _ in range(3):
+        Kinv = lk.ldl_inverse_kernel(fac)
+    torch.cuda.synchronize()
+    means = [cuda_ms(lambda: lk.ldl_inverse_kernel(fac), 20)[0]
+             for _ in range(3)]
+    N = Kinv.shape[1]
+    lower = torch.tril(torch.ones(N, N, dtype=torch.bool, device='cuda'))
+    others = keep_and_compare('ab_k7', label, [Kinv[:, lower]])
+    print(f'# K7 {label}: ' + ' '.join(f'{m:.4f}' for m in means)
+          + f' ms per launch (B={Kinv.shape[0]}, N={N}); max |Kinv| '
+          f'{float(Kinv.abs().max()):.6e}; max |lower - lower of| ' + others,
+          flush=True)
+    prob, c = cs.entropy_problem(ct, cs.ENTROPY_N)
+    cvs = {seed: np.random.default_rng(seed).normal(
+        size=(cs.B_ENTROPY, cs.ENTROPY_N)) for seed in (5, 6, 7)}
+    c.value = cvs[5][0]
+    fam = canonicalize(prob)
+    st = IPMSettings.for_dtype(torch.float32, **cs.ENTROPY_SETTINGS)
+    solver = CompiledConicSolver(fam, settings=st, dtype=torch.float32,
+                                 device='cuda')
+    for seed, cv in cvs.items():
+        c.value = cv[0]
+        out = solver.solve_batch(cs.entropy_batch(fam, prob, cv))
+        obj = -(out['obj'] + out['d']).double().cpu().numpy()
+        max_rel, n_bad = cs.parity(obj, np.log(np.sum(np.exp(cv), axis=1)))
+        iters = out['iters'].float()
+        print(f'# K7 {label}: entropy seed {seed}: solved '
+              f'{int((out["status"] == 1).sum())} of {cs.B_ENTROPY}, mean '
+              f'iters {float(iters.mean()):.4f} (max {int(iters.max())}), '
+              f'parity max rel {max_rel:.3e} ({n_bad} non-finite)',
+              flush=True)
+
+
+def time_k5(label, cs):
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.ops import banded_shared_kernel as k5
+    from cvxpygen_tpu_torch.runtime.solver import make_compiled_solver
+    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+    k5.build_chunk_kernel()
+    prob = cs.assign_mpc(cs.mpc_problem(ct, H=30))
+    fam = canonicalize(prob)
+    st = ADMMSettings(**cs.MPC30_SETTINGS)
+    solver = make_compiled_solver(fam, 'ADMM', settings=st, device='cuda')
+    theta = cs.x_init_batch(fam, prob, 2048)
+    args = cs.banded_args(solver, theta, st)
+    B = theta.shape[0]
+    done = torch.zeros((1, 1, B), dtype=torch.int32, device='cuda')
+    kw = dict(sigma=st.sigma, alpha=st.alpha, eps_abs=st.eps_abs,
+              eps_rel=st.eps_rel, check_interval=st.check_interval,
+              kkt_refine=0)
+
+    def run():
+        a = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+        return k5.banded_shared_chunk(*a, done, **kw)
+
+    out = run()
+    a = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+    means = [cuda_ms(lambda: k5.banded_shared_chunk(*a, done, **kw), 5)[0]
+             for _ in range(3)]
+    others = keep_and_compare('ab_k5', label, list(out))
+    res = solver.solve_batch(theta)
+    print(f'# K5 {label}: ' + ' '.join(f'{m:.4f}' for m in means)
+          + f' ms per launch (B={B}, {st.check_interval} iterations); max '
+          f'|x| {float(out[0].abs().max()):.6e}; max |out - out of| '
+          + others + f'; the MPC H=30 solve: mean iters '
+          f'{float(res["iters"].float().mean()):.4f}, solved '
+          f'{int((res["status"] == 1).sum())} of {B}', flush=True)
 
 
 def time_k4(label, cs):
@@ -97,18 +215,11 @@ def time_k4(label, cs):
     x = k4.cr_solve(fac, meta, b)
     means = [cuda_ms(lambda: k4.cr_solve(fac, meta, b), 50)[0]
              for _ in range(3)]
-    # the x of every checkout run so far, beside this one's
-    keep = os.path.join(os.getcwd(), 'build', 'ab_k4')
-    os.makedirs(keep, exist_ok=True)
-    others = []
-    for name in sorted(os.listdir(keep)):
-        other = torch.load(os.path.join(keep, name)).cuda()
-        others.append(f'{name[:-3]} {float((x - other).abs().max()):.3e}')
-    torch.save(x.cpu(), os.path.join(keep, f'{label}.pt'))
+    others = keep_and_compare('ab_k4', label, [x])
     print(f'# K4 {label}: ' + ' '.join(f'{m:.4f}' for m in means)
           + f' ms per launch (nb={nb}, s={s}, B={B}); max |x| '
-          f'{float(x.abs().max()):.6e}; max |x - x of| '
-          + (', '.join(others) or 'none yet'), flush=True)
+          f'{float(x.abs().max()):.6e}; max |x - x of| ' + others,
+          flush=True)
 
 
 def mpc_general(cs):
@@ -205,6 +316,10 @@ def main():
             sys.exit(f'imported {mod.__file__}, not the checkout {root}')
     if kernel == 'k6':
         time_k6(label)
+    elif kernel == 'k7':
+        time_k7(label, cs)
+    elif kernel == 'k5':
+        time_k5(label, cs)
     elif kernel == 'k4':
         time_k4(label, cs)
     elif kernel == 'k3':
@@ -214,7 +329,7 @@ def main():
     elif kernel == 'k1':
         time_k1(label, cs)
     else:
-        sys.exit(f'unknown kernel {kernel!r}: k1, k2, k3, k4 or k6')
+        sys.exit(f'unknown kernel {kernel!r}: k1, k2, k3, k4, k5, k6 or k7')
 
 
 if __name__ == '__main__':

@@ -79,8 +79,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    torch.cholesky_solve of the dense Cholesky factor of the same M;
 8. K5 (csrc/banded_chunk.cu) against its plain version on scaled MPC H=30
    data (nb=41, s=16, r_max=24) at B=256, from the zero start and from a
-   mid-solve state with every fifth instance done (the bars of K5_TOL and
-   K5_FLAG_BAND), and one call's time at B=2048 with its bound;
+   mid-solve state with every fifth instance done, at B=257 (a partial
+   last group) and at B=2048 (the bars of K5_TOL and K5_FLAG_BAND), each
+   bitwise equal on a second call and at every pinned group of instances
+   per thread block (1, 2, 4, 8); K5's time by group at B=256 and 2048
+   with the chosen group and its L2 bytes per call, one call's time at
+   B=2048 with its bound;
 9. the banded main path at full width: charging T=1440 (bench.py:544-580)
    through generate_code(solver='BANDED') -> solve(method='CPG'), within
    1e-2 of the port's dense float64 ADMM at eps 1e-6 on the card, and
@@ -110,9 +114,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    by the median entry's relative error; the same at n=64 (N=321,
    Np=336, B=64: K6's device-scratch path), K6's storage rule
    (ops/ldl_kernel.py::factor_layout) held to the library's; K7 at
-   B=70000 (above grid.y's
-   limit, two launches, N=7); each kernel's time, its plain version's,
-   the library call's and the function's bound;
+   B=70000 (one launch, N=7); K7 above a stage's whole block of L, at
+   N=801 (L applied in chunks) and N=1601 (R in the device scratch), on a
+   well-conditioned K within LDL_TOL of its plain version; K7's plan
+   (ops/ldl_kernel.py::inverse_plan) and its time at each column-tile
+   width on the first-iteration K and the n=64 twin, every width bitwise
+   equal on the lower triangle and its whole Kinv held to the float64
+   application as above; each kernel's time, its plain version's, the
+   library call's and the function's bound;
 11. the conic IPM main path at full width: the entropy family
    (bench.py:395-457, B=1024, c ~ N(0, 1) from default_rng(5), settings of
    bench.py:424-429) through CompiledConicSolver with K6 + K7 and with
@@ -1599,10 +1608,44 @@ def k5_check(out, ref, kw, label):
     return max_abs
 
 
+def k5_l2_bytes(nb_tot, nb, s, r_max, B, group, n_iters):
+    """Bytes K5 moves through L2 in one call, by its design: per thread
+    block the CR factor and B0/B1 twice (the A' and A products) every
+    iteration, and B0/B1 twice and D_P, L_P once in the residual pass; per
+    instance its x, z, y in, its q, l, u every iteration and once more in
+    the residual pass, x, z, y again for the deltas, x, z, y out and five
+    results."""
+    win = nb * r_max * s
+    per_block = (n_iters * (nb_tot * s * s + 4 * win)
+                 + 4 * win + (2 * nb - 1) * s * s)
+    nx, nr = nb * s, nb * r_max
+    per_inst = (n_iters + 4) * (nx + 2 * nr) + 5
+    return 4.0 * (-(-B // group) * per_block + B * per_inst)
+
+
+def k5_groups(k45, fn_args, done, kw, out, label):
+    """K5 again at the default plan and at every pinned group: bitwise
+    equal to ``out`` (a call's own clones of the in/out state)."""
+    def again(group=None):
+        a = [t.clone() if isinstance(t, torch.Tensor) else t for t in fn_args]
+        return k45.banded_shared_chunk(*a, done, **kw, group=group)
+
+    same = {g: all(torch.equal(x, y) for x, y in zip(again(g), out))
+            for g in (None, 1, 2, 4, 8)}
+    print(f'# phase 8: K5 {label}: a second call bitwise equal '
+          f'{same[None]}; groups 1, 2, 4, 8 bitwise equal to it: '
+          + ', '.join(str(same[g]) for g in (1, 2, 4, 8)))
+    check(all(same.values()),
+          f'K5 {label}: a second call or a pinned group differs')
+
+
 def compare_k5(solver, theta_cmp, theta_main, settings, card):
     """K5 against its plain version on the scaled MPC H=30 data at B=256,
     from the zero start and from a mid-solve state with every fifth
-    instance done, then one call's time at B=2048 (held to the same bar)."""
+    instance done, at B=257 (a partial last group) and at B=2048 (held to
+    the same bar), each bitwise equal on a second call and at every pinned
+    group of instances per thread block; then K5's time by group at B=256
+    and 2048, its L2 bytes per call and the bound."""
     from cvxpygen_tpu_torch.ops import banded_shared_kernel as k45
     kw = dict(sigma=settings.sigma, alpha=settings.alpha,
               eps_abs=settings.eps_abs, eps_rel=settings.eps_rel,
@@ -1614,6 +1657,10 @@ def compare_k5(solver, theta_cmp, theta_main, settings, card):
         a = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
         return fn(*a, done, **kw)
 
+    def plan(B):
+        return k45.chunk_launch_plan(st.nb, st.s, ga.r_max, B, None,
+                                     k45._sm_count(dev))
+
     args = banded_args(solver, theta_cmp, settings)
     B = theta_cmp.shape[0]
     done = torch.zeros((1, 1, B), dtype=torch.int32, device=dev)
@@ -1622,6 +1669,7 @@ def compare_k5(solver, theta_cmp, theta_main, settings, card):
     torch.cuda.synchronize()
     max_abs = max(max_abs, k5_check(out, call(
         k45.banded_shared_chunk_plain, args, done), kw, f'B={B} zero start'))
+    k5_groups(k45, args, done, kw, out, f'B={B} zero start')
     # mid-solve: three more kernel calls from there, every fifth instance
     # marked done
     state = list(args[:-3]) + list(out[:3])
@@ -1632,11 +1680,22 @@ def compare_k5(solver, theta_cmp, theta_main, settings, card):
     out = call(k45.banded_shared_chunk, state, done_mid)
     torch.cuda.synchronize()
     ref = call(k45.banded_shared_chunk_plain, state, done_mid)
-    max_abs = max(max_abs, k5_check(out, ref, kw, f'B={B} mid-solve, '
-                                    'every fifth instance done'))
+    label = f'B={B} mid-solve, every fifth instance done'
+    max_abs = max(max_abs, k5_check(out, ref, kw, label))
+    k5_groups(k45, state, done_mid, kw, out, label)
     for o, a in zip(out[:3], state[-3:]):
         check(torch.equal(o[..., ::5], a[..., ::5]),
               'K5: a done instance changed')
+
+    # a partial last group at every pinned group (257 = 32 * 8 + 1)
+    Bp = B + 1
+    args = banded_args(solver, theta_main[:Bp], settings)
+    done = torch.zeros((1, 1, Bp), dtype=torch.int32, device=dev)
+    out = call(k45.banded_shared_chunk, args, done)
+    max_abs = max(max_abs, k5_check(out, call(
+        k45.banded_shared_chunk_plain, args, done), kw,
+        f'B={Bp} zero start'))
+    k5_groups(k45, args, done, kw, out, f'B={Bp} zero start')
 
     args = banded_args(solver, theta_main, settings)
     Bm = theta_main.shape[0]
@@ -1644,6 +1703,29 @@ def compare_k5(solver, theta_cmp, theta_main, settings, card):
     out = call(k45.banded_shared_chunk, args, done)        # warm
     max_abs = max(max_abs, k5_check(out, call(
         k45.banded_shared_chunk_plain, args, done), kw, f'B={Bm} zero start'))
+    k5_groups(k45, args, done, kw, out, f'B={Bm} zero start')
+    # the group sweep: instances per thread block at B=256 and at the main
+    # batch
+    nb_tot = args[1]['total']
+    for nb_b in (B, Bm):
+        a = [t.clone() if isinstance(t, torch.Tensor) else t
+             for t in banded_args(solver, theta_main[:nb_b], settings)]
+        d = torch.zeros((1, 1, nb_b), dtype=torch.int32, device=dev)
+        line = []
+        for g in (1, 2, 4, 8):
+            k45.banded_shared_chunk(*a, d, **kw, group=g)     # warm
+            g_ms, _ = cuda_ms(
+                lambda: k45.banded_shared_chunk(*a, d, **kw, group=g), 5)
+            l2 = k5_l2_bytes(nb_tot, st.nb, st.s, ga.r_max, nb_b, g,
+                             settings.check_interval)
+            line.append(f'{g}: {g_ms:.4f} ms ({l2 / 1e9:.3f} GB L2)')
+        g0, tile, gt, smem = plan(nb_b)
+        print(f'# phase 8: K5 by group at B={nb_b}: ' + ', '.join(line)
+              + f' (the rule: group {g0}, steps of {tile} CR block pairs '
+              f'and {gt} A blocks, {smem} B of shared memory) [{card}]')
+        check(k45._LIB_CHUNK.banded_chunk_smem_bytes(
+            st.nb, st.s, ga.r_max, g0, tile, gt) == smem,
+            f'K5 shared-memory rule at B={nb_b}')
     a = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
     ms, _ = cuda_ms(lambda: k45.banded_shared_chunk(*a, done, **kw), 5)
     a = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
@@ -1651,12 +1733,17 @@ def compare_k5(solver, theta_cmp, theta_main, settings, card):
     plain_ms, _ = cuda_ms(
         lambda: k45.banded_shared_chunk_plain(*a, done, **kw), 1)
     bound_ms, bound_by, ops, nbytes = k5_bound(
-        args[1]['total'], st.s, st.n, st.m, len(st.a_row), len(st.p_row), Bm,
+        nb_tot, st.s, st.n, st.m, len(st.a_row), len(st.p_row), Bm,
         Bm, settings.check_interval)
+    g0 = plan(Bm)[0]
+    l2, l2_one = (k5_l2_bytes(nb_tot, st.nb, st.s, ga.r_max, Bm, g,
+                              settings.check_interval) for g in (g0, 1))
     print(f'# phase 8: K5 at nb={st.nb}, s={st.s}, r_max={ga.r_max}, B={Bm}, '
-          f'{settings.check_interval} iterations: kernel {ms:.4f} ms, plain '
-          f'{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; '
-          f'{ops / 1e9:.2f} GFLOP FP32, {nbytes / 1e6:.1f} MB) [{card}]')
+          f'{settings.check_interval} iterations (group {g0}): kernel '
+          f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms '
+          f'({bound_by}; {ops / 1e9:.2f} GFLOP FP32, {nbytes / 1e6:.1f} MB), '
+          f'L2 bytes per call {l2 / 1e9:.3f} GB (one instance per block: '
+          f'{l2_one / 1e9:.3f}) [{card}]')
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
@@ -2065,9 +2152,10 @@ def compare_ldl(K, signs, dd, label, factor_tol=LDL_TOL):
 
 
 def k7_large_batch(B=70000, n=3, m=4):
-    """K7 at a batch above grid.y's 65535 (two launches of the kernel in
-    one call): a small well-conditioned quasidefinite K (N=7), its inverse
-    within LDL_TOL * max(1, |v|_inf) of the plain version's."""
+    """K7 at a batch above 65535 (the grid.y limit of its first design; its
+    one-dimensional grid takes the batch in one launch): a small
+    well-conditioned quasidefinite K (N=7), its inverse within LDL_TOL *
+    max(1, |v|_inf) of the plain version's."""
     from cvxpygen_tpu_torch.ops import ldl_kernel as lk
     from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
     g = torch.Generator(device='cuda').manual_seed(2)
@@ -2087,8 +2175,95 @@ def k7_large_batch(B=70000, n=3, m=4):
         err = float(inst_err(Kinv, lk.ldl_inverse_plain(fac)).max())
     print(f'# phase 10: K7 at B={B} ({launches} launches), N={n + m}: max '
           f'|d| / max(1, |v|_inf) to its plain version {err:.3e}')
-    check(launches == 2, f'K7 at B={B}: {launches} launches')
+    check(launches == 1, f'K7 at B={B}: {launches} launches')
     check(err <= LDL_TOL, f'K7 at B={B}: {err:.3e} > {LDL_TOL}')
+
+
+def k7_large_n(card, Ns=(801, 1601), B=4):
+    """K7 where a stage could not hold a panel's whole block of L (N=801:
+    L applied in chunks of 256 rows, R resident) and where R does not fit
+    shared memory (N=1601: R in the device scratch): a well-conditioned
+    quasidefinite K ([[A A' / n + I, C' / sqrt(n)], [C / sqrt(n), -I]]),
+    K6's factor, the inverse within LDL_TOL * max(1, |v|_inf) per instance
+    of the plain version's on that factor; kernel and plain times."""
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
+    g = torch.Generator(device='cuda').manual_seed(3)
+    for N in Ns:
+        n, m = N // 2, N - N // 2
+        A = torch.randn((B, n, n), generator=g, device='cuda')
+        C = torch.randn((B, m, n), generator=g, device='cuda') / n ** 0.5
+        K = torch.zeros((B, N, N), device='cuda')
+        K[:, :n, :n] = A @ A.transpose(1, 2) / n + torch.eye(n, device='cuda')
+        K[:, n:, :n] = C
+        K[:, :n, n:] = C.transpose(1, 2)
+        K[:, n:, n:] = -torch.eye(m, device='cuda')
+        signs = np.concatenate([np.ones(n), -np.ones(m)])
+        plan = lk.inverse_plan(N)
+        with full_f32_matmul():
+            fac = lk.ldl_factor_kernel(K, signs, 1e-4)
+            Kinv = lk.ldl_inverse_kernel(fac)
+            ref = lk.ldl_inverse_plain(fac)
+            err = float(inst_err(Kinv, ref).max())
+            ms = cuda_ms(lambda: lk.ldl_inverse_kernel(fac), 3)[0]
+            plain_ms = cuda_ms(lambda: lk.ldl_inverse_plain(fac), 1)[0]
+        print(f'# phase 10: K7 at N={N}, B={B} (plan: width {plan["width"]}, '
+              f'R {"resident" if plan["resident"] else "in the device scratch"}'
+              f', {plan["smem_bytes"]} B of shared memory): max |d| / max(1, '
+              f'|v|_inf) to its plain version {err:.3e}; {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms [{card}]')
+        check(bool(torch.isfinite(Kinv).all()), f'K7 at N={N}: non-finite')
+        check(err <= LDL_TOL, f'K7 at N={N}: {err:.3e} > {LDL_TOL}')
+        check(lk._LIB_INVERSE.ldl_inverse_smem_bytes(
+            plan['Np'], plan['p'], plan['width'], int(plan['resident']))
+              == plan['smem_bytes'], f'K7 shared-memory rule at N={N}')
+    check(lk.inverse_plan(Ns[0])['resident']
+          and not lk.inverse_plan(Ns[-1])['resident'],
+          'K7: R resident at N=801, in the device scratch at 1601')
+
+
+def k7_widths(K, signs, dd, card, label):
+    """K7's plan on K6's factor of K, and its time at each column-tile
+    width (CUDA events): every width bitwise equal to the plan's on the
+    lower triangle, and its whole Kinv within twice the plain version's
+    distance from the float64 application of the factor plus
+    LDL_APPLY_FLOOR, by both measures of entry_errs (compare_ldl's
+    rule)."""
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
+    B, N, _ = K.shape
+    with full_f32_matmul():
+        fac = lk.ldl_factor_kernel(K, signs, dd)
+        fac64 = dict(fac, **{k: fac[k].double() for k in ('L', 'd', 'Linv')})
+        exact = lk.ldl_inverse_plain(fac64)
+        ep = entry_errs(lk.ldl_inverse_plain(fac), exact)
+    del fac64
+    plan = lk.inverse_plan(N)
+    first = lk.ldl_inverse_kernel(fac)
+    lower = torch.tril(torch.ones(N, N, dtype=torch.bool, device=K.device))
+    line = []
+    for w in (16, 32):
+        out = lk._inverse_launch(fac, w)
+        check(torch.equal(out[:, lower], first[:, lower]),
+              f'K7 {label}: width {w} differs on the lower triangle')
+        ek = entry_errs(out, exact)
+        for what, a, b in zip(('max', 'median entry'), ek, ep):
+            check(a <= 2 * b + LDL_APPLY_FLOOR, f'K7 {label}, width {w}: '
+                  f'{what} error {a:.3e} > 2 x plain {b:.3e} + '
+                  f'{LDL_APPLY_FLOOR}')
+        ms, _ = cuda_ms(lambda: lk._inverse_launch(fac, w), 10)
+        line.append(f'{w}: {ms:.4f} ms '
+                    f'({lk.inverse_plan(N, width=w)["smem_bytes"]} B; '
+                    f'against float64 {ek[0]:.3e} and {ek[1]:.3e})')
+    print(f'# phase 10: K7 {label}, B={B}, N={N} (plan: width '
+          f'{plan["width"]}, {plan["tiles"]} tiles per instance, '
+          f'{plan["smem_bytes"]} B of shared memory), by tile width: '
+          + ', '.join(line) + f' (plain against float64 {ep[0]:.3e} and '
+          f'{ep[1]:.3e}); the lower triangle bitwise equal across widths '
+          f'[{card}]')
+    check(lk._LIB_INVERSE.ldl_inverse_smem_bytes(
+        plan['Np'], plan['p'], plan['width'], int(plan['resident']))
+          == plan['smem_bytes'], f'K7 shared-memory rule at N={N}')
 
 
 def time_ldl(K, signs, dd, card):
@@ -2258,6 +2433,9 @@ def phase_conic(card, dev='cuda'):
     compare_ldl(K1, s0, dd, "each instance's last iteration, Np=176",
                 factor_tol=None)
     k7_large_batch()
+    k7_large_n(card)
+    k7_widths(K0, s0, dd, card, 'first iteration')
+    k7_widths(KL, sL, dd, card, 'n=64 twin')
     numbers = time_ldl(K0, s0, dd, card)
     # max_abs_err: K6 to its plain version; K7 and K8 to theirs (both
     # relative to max(1, |v|_inf) per instance, the first iteration's K)

@@ -1,8 +1,10 @@
 // Block cyclic-reduction (CR) solve of one shared block-tridiagonal SPD
 // system for one right-hand side, by all threads of a thread block, with
 // the right-hand side, the solution and every level's odd blocks in shared
-// memory and the packed factor read from global memory (L2).  Used by
-// kernels K4 (cr_solve.cu) and K5 (banded_chunk.cu).
+// memory and the packed factor read from global memory (L2): kernel K11's
+// (banded_iterate.cu).  The level table and the factor's metadata here
+// also serve kernels K4 and K5 through the grouped solve of
+// csrc/cr_group.cuh.
 //
 // The factor layout is ops/banded_grouped.py::pack_cr_levels: per level
 // [Dinv_odd (n2), A (n2 - 1), C (n2), L_left (n2 - 1), L_even (n2)], then

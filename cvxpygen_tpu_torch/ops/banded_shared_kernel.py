@@ -25,8 +25,9 @@ tensor (ops/banded_grouped.pack_cr_levels).  Two kernels use that factor:
   ``banded_iterate``), which the reference ships but no solver calls; no
   solver of the port calls it either.  CUDA source: csrc/banded_iterate.cu.
 
-K5 and K11 share the one-instance CR solve of csrc/cr.cuh; K4 has its
-own (instances in groups, the factor staged per group).  Each wrapper
+K4 and K5 share the grouped CR solve of csrc/cr_group.cuh (instances in
+groups, the factor staged per group); K11 keeps the one-instance solve of
+csrc/cr.cuh.  Each wrapper
 runs its plain torch version (``cr_solve_plain``,
 ``banded_shared_chunk_plain``, ``banded_iterate_plain``, the same
 arithmetic) on CPU tensors and launches its CUDA kernel (float32, built
@@ -39,19 +40,20 @@ bit-packed 1 ok, 2 p_inf, 4 d_inf.  The reference tiles the batch into
 VMEM-sized chunks (its ``pick_banded_chunk``); nothing in any of the
 kernels depends on the tiling, because every decision that couples
 instances (done, adaptive rho, refactorization) is the solve loop's, over
-the whole batch.  So the port has no chunk argument: K5 and K11 take one
-thread block per instance, and K4 a group of 1-8 consecutive instances
-per block (``pick_cr_group``), which shares each read of the factor and
-changes no bit of the answer.
+the whole batch.  So the port has no chunk argument: K11 takes one thread
+block per instance, K4 and K5 a group of 1-8 consecutive instances per
+block (``pick_cr_group``), which shares each read of the shared matrices
+and changes no bit of the answer.
 
 What bounds them on the card: K4 is bytes-bound (b in, x out and the
 factor once: 9.6 MB against 89 MFLOP at charging T=1440, B=256); its
 dependent levels and the factor's trips from L2 set its time, so its
 groups stage the factor through shared memory (csrc/cr_solve.cu).  K5 is
-bound by operations on paper, but this first design reads the shared
-factor and the grouped A from L2 for every instance and iteration (about
-0.5 MB per instance-iteration at MPC H=30), and the latency of those reads
-bounds it.  See the notes in the CUDA sources.
+bound by operations on paper; in practice the shared factor and grouped A
+that every iteration reads (340 KB at MPC H=30) set its time, so its
+groups stage them through shared memory by bulk copies, one read for up
+to eight instances (csrc/banded_chunk.cu).  See the notes in the CUDA
+sources.
 """
 from __future__ import annotations
 
@@ -183,10 +185,70 @@ def cr_launch_plan(nb, s, B, group=None, sms=132):
                      f'memory at {cap} instances per block')
 
 
-def chunk_smem_words(nb, s, r_max):
-    """Shared-memory words of one K5 block (csrc/banded_chunk.cu): x, q,
-    x0 and z, y, l, u, y0, rho, v of one instance, and the CR solve."""
-    return 3 * nb * s + 7 * nb * r_max + cr_smem_words(nb, s)
+# K5's launch (csrc/banded_chunk.cu): CR block pairs and A blocks per step
+# at most (fewer, larger steps are faster on the H100: a step's barrier and
+# latency cost more than its work; 24 takes MPC H=30's 21 first-level
+# pairs in one step, and more measured no faster), the ring's stages, and
+# the static shared memory of a block beside the level table: the residual
+# pass's per-warp maxima and sums of each instance, and one mbarrier per
+# stage
+_CHUNK_STEP = 24
+_CHUNK_RING = 2
+_CHUNK_RED = 4 * 8 * (14 + 2)
+_CHUNK_BARS = 8 * _CHUNK_RING
+
+
+def _r4(words):
+    return -(-words // 4) * 4
+
+
+def chunk_smem_bytes(nb, s, r_max, group, tile, gt):
+    """Dynamic shared memory of one K5 block (csrc/banded_chunk.cu
+    ``smem_words``): the CR state of ``group`` instances (nb blocks of s
+    rows of ``group``-wide vectors, _CR_PAD words apart), their x, z, y and
+    v = rho z - y, rho once, and a ring of two stages, each the larger of
+    a CR step's three slots of ``tile`` s x s blocks and an A step's B0 and
+    B1 windows of ``gt`` blocks; every part in 16-byte lines."""
+    nx, nr = nb * s, nb * r_max
+    stage = _r4(max(3 * tile * s * s, 2 * gt * r_max * s))
+    return 4 * (nb * (s * group + _CR_PAD) + _r4(nx * group)
+                + 3 * _r4(nr * group) + _r4(nr) + _CHUNK_RING * stage)
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_launch_plan(nb, s, r_max, B, group=None, sms=132):
+    """K5's launch for x (nb, s, B), z (nb, r_max, B) on a card of ``sms``
+    SMs: (group, tile, gt, smem bytes).  ``group`` instances per thread
+    block (K4's rule, ``pick_cr_group``, unless pinned: one block per SM
+    is what K5's shared memory allows too, and on the H100 at MPC H=30 the
+    rule's 2 at B=256 and 8 at B=2048 are the fastest, chip_smoke.py phase
+    8; a smaller group where the state does not fit), so ceil(B / group)
+    blocks, the last one partial when group does not divide B; ``tile`` CR
+    block pairs and ``gt`` A blocks per step, each at most _CHUNK_STEP and
+    as many as shared memory holds.  Raises ValueError when no plan
+    fits."""
+    if s % 4:
+        raise ValueError(f'banded chunk kernel: s={s} is not a multiple of '
+                         '4')
+    if group is not None and group not in _CR_GROUPS:
+        raise ValueError(f'banded chunk kernel: group={group} is not one of '
+                         f'{_CR_GROUPS}')
+    cap = pick_cr_group(B, sms) if group is None else group
+    tile_cap = min(_CHUNK_STEP, _CR_PAIRS * _CR_THREADS // s)
+    gt_cap = min(_CHUNK_STEP, nb)
+    for g in [g for g in reversed(_CR_GROUPS) if g <= cap]:
+        budget = _SMEM_LIMIT - _CR_STATIC - _CHUNK_RED * g - _CHUNK_BARS
+        room = ((budget - chunk_smem_bytes(nb, s, r_max, g, 0, 0))
+                // (16 * _CHUNK_RING) * 4)
+        tile = min(tile_cap, room // (3 * s * s))
+        gt = min(gt_cap, room // (2 * r_max * s))
+        if tile >= 1 and gt >= 1:
+            return g, tile, gt, chunk_smem_bytes(nb, s, r_max, g, tile, gt)
+        if group is not None:
+            break
+    raise ValueError(f'banded chunk kernel: nb={nb}, s={s}, r_max={r_max} '
+                     f'does not fit shared memory at {cap} instances per '
+                     'block')
 
 
 def iterate_smem_words(nb, s, r_max, kkt_refine):
@@ -434,7 +496,9 @@ def _bind_chunk(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.banded_chunk_f32.restype = I
     lib.banded_chunk_f32.argtypes = ([P] * 21 + [P] + [I] * 5 + [F] * 5
-                                     + [P])
+                                     + [I] * 3 + [P])
+    lib.banded_chunk_smem_bytes.restype = ctypes.c_longlong
+    lib.banded_chunk_smem_bytes.argtypes = [I] * 6
 
 
 def _bind_iterate(lib):
@@ -539,7 +603,7 @@ cr_solve.launches = 0
 def banded_shared_chunk(fac_packed, meta, B0, B1, D_P, L_P, D_M, L_M, D,
                         E_inv, E, rho, c_inv, q, l, u, x, z, y, done, *,
                         sigma, alpha, eps_abs, eps_rel, check_interval,
-                        kkt_refine):
+                        kkt_refine, group=None):
     """Run check_interval fused iterations on the whole batch (K5).
 
     Layouts (as solvers/admm_banded_shared.py prepares them): q/x
@@ -548,7 +612,9 @@ def banded_shared_chunk(fac_packed, meta, B0, B1, D_P, L_P, D_M, L_M, D,
     x, z, y are updated IN PLACE (the reference aliases them to its
     outputs); done instances keep their state.  D_M and L_M (the banded M)
     serve only a refinement sweep, which the CR solve does not need:
-    ``kkt_refine`` must be 0.  Returns (x, z, y, rp, rd, rp_den, rd_den,
+    ``kkt_refine`` must be 0.  ``group`` pins the instances per thread
+    block (1, 2, 4 or 8; ``chunk_launch_plan``'s rule by default); no bit
+    of the result depends on it.  Returns (x, z, y, rp, rd, rp_den, rd_den,
     flags), the last five of shape (B,).  CPU tensors run
     ``banded_shared_chunk_plain``; CUDA tensors launch the kernel (float32)
     or raise."""
@@ -564,9 +630,8 @@ def banded_shared_chunk(fac_packed, meta, B0, B1, D_P, L_P, D_M, L_M, D,
     nb, s, B = x.shape
     r_max = l.shape[1]
     dev = x.device
-    if 4 * chunk_smem_words(nb, s, r_max) > _SMEM_LIMIT:
-        raise ValueError(f'banded chunk kernel: nb={nb}, s={s}, '
-                         f'r_max={r_max} does not fit shared memory')
+    g, tile, gt, _ = chunk_launch_plan(nb, s, r_max, B, group,
+                                       _sm_count(dev))
     ins = [checked(fac_packed, 'fac_packed', (meta['total'], s, s), dev),
            checked(B0, 'B0', (nb, r_max, s), dev),
            checked(B1, 'B1', (nb, r_max, s), dev),
@@ -596,7 +661,7 @@ def banded_shared_chunk(fac_packed, meta, B0, B1, D_P, L_P, D_M, L_M, D,
             *[t.data_ptr() for t in ins + state + [done] + outs + [flags]],
             _meta_ptr(meta, nb, s), B, nb, s, r_max, int(check_interval),
             float(c_inv), float(sigma), float(alpha), float(eps_abs),
-            float(eps_rel), stream)
+            float(eps_rel), g, tile, gt, stream)
     if err != 0:
         raise RuntimeError(f'banded_chunk kernel launch failed: CUDA error '
                            f'{err}')

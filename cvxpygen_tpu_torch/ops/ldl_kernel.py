@@ -41,7 +41,11 @@ every instance is independent in all five kernels, so no block size
 changes an answer.  K6 keeps an instance's lower triangle as 16 x 16
 tiles in shared memory up to Np = 320 (three blocks per SM at the entropy
 shape, Np = 176) and in a device scratch the wrapper allocates above that
-(``factor_layout``).
+(``factor_layout``).  K7 takes one instance and one tile of columns per
+thread block (``inverse_plan``), skips the exact zeros of L^-1 and computes
+the lower triangle only, writing the upper one as its transpose; its tile's
+right-hand block stays in shared memory where it fits (Np <= 1296) and in a
+device scratch the wrapper allocates above that.
 """
 from __future__ import annotations
 
@@ -63,8 +67,11 @@ _LIB_FI = None
 # and 2)
 FI_GROUP = 8
 _SIGNS = {}             # (padded signs, device) -> their tensor
-# K7's grid is (column tiles, instances); grid.y takes at most 65535
-_GRID_Y = 65535
+# K7 (csrc/ldl_inverse.cu): its column-tile widths, the row stride of a
+# staged L21 block and the rows (columns) of L in one stage
+_K7_WIDTHS = (16, 32)
+_K7_LS = 16 + 4
+_K7_CHUNK = 256
 # K6 (csrc/ldl_factor.cu): the tiles of the lower triangle are 16 x 16
 # floats; its static shared memory (two panels' Minv and pivots); the per-block
 # limit; an SM's shared memory and the 1 KB the card reserves per block;
@@ -127,6 +134,45 @@ def factor_layout(N, panel: int = 16):
                 resident=resident, smem_bytes=smem,
                 blocks_per_sm=min(_SM_THREADS // _K6_THREADS,
                                   _SM_SMEM // per_block))
+
+
+def inverse_smem_bytes(N, width, resident=True, panel: int = 16):
+    """Dynamic shared memory of one K7 block (csrc/ldl_inverse.cu
+    ``smem_bytes``): the tile's (Np, width + 4) right-hand block when it is
+    ``resident``, the panel product (16, width) and two stages of the panel
+    inverse and a chunk of at most 256 rows of L, in 16-byte lines."""
+    p, Np = _dims(N, panel)
+    stage = p * p
+    if Np > p:
+        stage += min(Np - p, _K7_CHUNK) * _K7_LS
+    stage = -(-stage // 4) * 4
+    rows = Np * (width + 4) if resident else 0
+    return 4 * (rows + 16 * width + 2 * stage)
+
+
+def inverse_plan(N, width=None, panel: int = 16):
+    """K7's launch for a factor of N: the panel p, Np, the column-tile
+    width (``width`` pins it), the tiles per instance, whether the tile's
+    right-hand block is ``resident`` in shared memory (else in a device
+    scratch of ``scratch_words`` floats per instance) and the shared memory
+    of one block.  By default the width is 32 (faster than 16 on the H100
+    at N=161, B=1024 and at N=321, B=64, chip_smoke.py phase 10), or 16
+    where one tile of 16 holds every column (N <= 16).  Every N has a plan;
+    raises ValueError for a width the kernel does not take."""
+    p, Np = _dims(N, panel)
+    if width is None:
+        width = 16 if N <= 16 else 32
+    if width not in _K7_WIDTHS:
+        raise ValueError(f'ldl_inverse kernel: width={width} is not one of '
+                         f'{_K7_WIDTHS}')
+    tiles = -(-N // width)
+    smem = inverse_smem_bytes(N, width, True, panel)
+    resident = smem <= _SMEM_LIMIT
+    if not resident:
+        smem = inverse_smem_bytes(N, width, False, panel)
+    return dict(p=p, Np=Np, width=width, tiles=tiles, resident=resident,
+                scratch_words=0 if resident else tiles * Np * (width + 4),
+                smem_bytes=smem)
 
 
 def ldl_factor_inverse_plain(K, signs, dyn_delta, panel: int = 16):
@@ -228,7 +274,9 @@ def _bind_factor(lib):
 def _bind_inverse(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ldl_inverse_f32.restype = I
-    lib.ldl_inverse_f32.argtypes = [P, P, P, I, I, I, I, P, P]
+    lib.ldl_inverse_f32.argtypes = [P, P, P, I, I, I, I, I, P, P, P]
+    lib.ldl_inverse_smem_bytes.restype = ctypes.c_longlong
+    lib.ldl_inverse_smem_bytes.argtypes = [I, I, I, I]
 
 
 def _bind_solve(lib):
@@ -369,26 +417,35 @@ def _fac_args(fac, dev):
 
 def ldl_inverse_kernel(fac):
     """Explicit inverse (B, N, N) of the factored matrix (K7; the contract
-    of ``ldl_inverse_pallas``).  CPU tensors run ``ldl_inverse_plain``;
-    CUDA tensors launch the kernel (float32) or raise."""
+    of ``ldl_inverse_pallas``), launched by ``inverse_plan``'s rule.  CPU
+    tensors run ``ldl_inverse_plain``; CUDA tensors launch the kernel
+    (float32) or raise."""
+    return _inverse_launch(fac, None)
+
+
+def _inverse_launch(fac, width):
+    """``ldl_inverse_kernel`` with the column-tile width pinned (16 or 32;
+    None: the plan's), for timing and tests; no width changes the lower
+    triangle."""
     if fac['L'].device.type == 'cpu':
         return ldl_inverse_plain(fac)
     dev = _cuda_device(fac['L'], 'LDL inverse')
     B, N, Np, p, L, d, Linv = _fac_args(fac, dev)
+    plan = inverse_plan(N, width, p)
     build_inverse_kernel()
     Kinv = torch.empty((B, N, N), dtype=torch.float32, device=dev)
+    scratch = None
+    if not plan['resident']:
+        scratch = torch.empty((B, plan['scratch_words']), dtype=torch.float32,
+                              device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    # one launch per slice of at most 65535 instances (the grid.y limit);
-    # slices of a contiguous batch are contiguous
-    for b0 in range(0, B, _GRID_Y):
-        b1 = min(B, b0 + _GRID_Y)
-        with torch.cuda.device(dev):
-            err = _LIB_INVERSE.ldl_inverse_f32(
-                L[b0:b1].data_ptr(), d[b0:b1].data_ptr(),
-                Linv[b0:b1].data_ptr(), b1 - b0, N, Np, p,
-                Kinv[b0:b1].data_ptr(), stream)
-        _raise_on(err, 'ldl_inverse')
-        ldl_inverse_kernel.launches += 1
+    with torch.cuda.device(dev):
+        err = _LIB_INVERSE.ldl_inverse_f32(
+            L.data_ptr(), d.data_ptr(), Linv.data_ptr(), B, N, Np, p,
+            plan['width'], None if scratch is None else scratch.data_ptr(),
+            Kinv.data_ptr(), stream)
+    _raise_on(err, 'ldl_inverse')
+    ldl_inverse_kernel.launches += 1
     return Kinv
 
 

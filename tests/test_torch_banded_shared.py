@@ -357,3 +357,72 @@ def test_cr_solve_kernel_matches_plain_on_card(B):
     assert float(((x - ref).abs().amax(dim=(0, 1)) / scale).max()) <= 1e-4
     for g in (1, 2, 4, 8):
         assert torch.equal(kernel.cr_solve(fac, meta, b, group=g), x)
+
+
+# ---------------------------------------------------------------------------
+# kernel K5's launch plan (csrc/banded_chunk.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('B,plan', [(1, (1, 24, 24)), (256, (2, 24, 24)),
+                                    (257, (2, 24, 24)),
+                                    (2048, (8, 14, 14))])
+def test_chunk_plan_rule(B, plan):
+    """K5's plan at MPC H=30 (nb=41, s=16, r_max=24): the rule's group
+    (eight instances per thread block at B=2048) with steps as large as
+    shared memory holds (14 CR block pairs and A blocks at eight, the cap
+    of 24 below), every pinned group fits, ceil(B / group) thread blocks
+    cover every instance once, and the kernel's static shared memory fits
+    beside the dynamic part."""
+    g, tile, gt, smem = kernel.chunk_launch_plan(41, 16, 24, B)
+    assert (g, tile, gt) == plan and g == kernel.pick_cr_group(B)
+    for pin in (1, 2, 4, 8):
+        gp, tp, gtp, sp = kernel.chunk_launch_plan(41, 16, 24, B, pin)
+        assert gp == pin and 1 <= tp <= 24 and 1 <= gtp <= 24
+        assert sp == kernel.chunk_smem_bytes(41, 16, 24, pin, tp, gtp)
+        assert sp + 4 * 10 * 32 + 4 * 8 * 16 * pin + 8 * 2 <= 232448
+        covered = np.concatenate([np.arange(j * pin, min(B, j * pin + pin))
+                                  for j in range(-(-B // pin))])
+        assert np.array_equal(covered, np.arange(B))
+
+
+def test_chunk_plan_drops_the_group_where_it_must():
+    """At nb=96 (the largest nb the engine gives K5) eight instances do not
+    fit: the rule drops to four with shorter steps, a pinned eight is
+    refused, and a shape where one instance does not fit raises."""
+    assert kernel.chunk_launch_plan(96, 16, 24, 2048)[:3] == (4, 9, 9)
+    with pytest.raises(ValueError, match='does not fit'):
+        kernel.chunk_launch_plan(96, 16, 24, 2048, group=8)
+    with pytest.raises(ValueError, match='does not fit'):
+        kernel.chunk_launch_plan(96, 64, 96, 2048)
+    with pytest.raises(ValueError, match='multiple of 4'):
+        kernel.chunk_launch_plan(41, 6, 24, 2048)
+    with pytest.raises(ValueError, match='group=3'):
+        kernel.chunk_launch_plan(41, 16, 24, 2048, group=3)
+
+
+@pytest.mark.cuda
+def test_chunk_kernel_matches_plain_on_card(batch):
+    """On a card, K5 against its plain version from the zero start and with
+    every other instance done (1e-4 of max(1, |v|_inf) per instance for x,
+    z, y), a second call and every pinned group bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the card: chip_smoke.py phase 8)')
+    args = [a.float().cuda() if isinstance(a, torch.Tensor) else a
+            for a in _chunk_args(batch)]
+
+    def run(fn, done, **kw):
+        a = [t.clone() if isinstance(t, torch.Tensor) else t for t in args]
+        return fn(*a, done, **CHUNK_KW, **kw)
+
+    for done in ([0, 0, 0, 0], [0, 1, 0, 1]):
+        done = torch.tensor(done, dtype=torch.int32,
+                            device='cuda').reshape(1, 1, B)
+        out = run(kernel.banded_shared_chunk, done)
+        ref = run(kernel.banded_shared_chunk_plain, done)
+        for o, r in zip(out[:3], ref[:3]):
+            scale = torch.clamp(r.abs().amax(dim=(0, 1)), min=1.0)
+            assert float(((o - r).abs().amax(dim=(0, 1)) / scale).max()) \
+                <= 1e-4
+        for g in (None, 1, 2, 4, 8):
+            again = run(kernel.banded_shared_chunk, done, group=g)
+            assert all(torch.equal(a, o) for a, o in zip(again, out))

@@ -285,3 +285,131 @@ def test_factor_kernel_matches_plain_on_card(N):
         a, r = fac[key].double().flatten(1), ref[key].double().flatten(1)
         scale = torch.clamp(r.abs().amax(dim=1), min=1.0)
         assert float(((a - r).abs().amax(dim=1) / scale).max()) <= 1e-4, key
+
+
+# ---------------------------------------------------------------------------
+# kernel K7's plan and schedule (csrc/ldl_inverse.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('N,Np,p,width,tiles,resident', [
+    (7, 7, 7, 16, 1, True), (161, 176, 16, 32, 6, True),
+    (321, 336, 16, 32, 11, True), (801, 816, 16, 32, 26, True),
+    (1296, 1296, 16, 32, 41, True), (1297, 1312, 16, 32, 41, False),
+    (3700, 3712, 16, 32, 116, False)])
+def test_inverse_plan_rule(N, Np, p, width, tiles, resident):
+    """K7's plan: one tile of 16 below the panel (N=7), tiles of 32 above;
+    the tile's right-hand block in shared memory up to Np = 1296 and in a
+    device scratch above, so that every N has a launch (the first design
+    took Np up to about 3600); a stage holds at most 256 rows of L, so the
+    shared memory of the kernel's layout fits the per-block limit at every
+    width; a width the kernel does not take is refused."""
+    plan = ldl_kernel.inverse_plan(N)
+    assert (plan['p'], plan['Np'], plan['width'], plan['tiles'],
+            plan['resident']) == (p, Np, width, tiles, resident)
+    for w in (16, 32):
+        pw = ldl_kernel.inverse_plan(N, width=w)
+        stage = p * p + (min(Np - p, 256) * 20 if Np > p else 0)
+        stage = -(-stage // 4) * 4
+        rows = Np * (w + 4) if pw['resident'] else 0
+        assert pw['smem_bytes'] == 4 * (rows + 16 * w + 2 * stage)
+        assert pw['smem_bytes'] <= 232448
+        assert pw['resident'] == (4 * (Np * (w + 4) + 16 * w + 2 * stage)
+                                  <= 232448)
+        assert pw['scratch_words'] == (0 if pw['resident'] else
+                                       pw['tiles'] * Np * (w + 4))
+    for w in (48, 64):
+        with pytest.raises(ValueError, match='width'):
+            ldl_kernel.inverse_plan(N, width=w)
+
+
+def _inverse_tiled(fac, b, width, chunk=256):
+    """csrc/ldl_inverse.cu's schedule for one instance (float64): per tile
+    of ``width`` columns from j0, the forward sweep from panel j0 / p, the
+    diagonal and the backward sweep down to that panel over the rows from
+    j0 only, each panel's block of L applied ``chunk`` rows (columns) at a
+    time; the lower triangle from the tiles and the upper one as its
+    transpose."""
+    L, d, V = fac['L'][b], fac['d'][b], fac['Linv'][b]
+    p, N, Np = fac['panel'], fac['N'], fac['Np']
+    nbp = Np // p
+    Kinv = torch.full((N, N), float('nan'), dtype=L.dtype)
+    for j0 in range(0, N, width):
+        k0, lo = j0 // p, j0 // p * p
+        R = torch.zeros((Np, width), dtype=L.dtype)
+        for c in range(width):
+            if j0 + c < Np:
+                R[j0 + c, c] = 1.0
+        for k in range(k0, nbp):
+            o = k * p
+            R[o:o + p] = V[o:o + p] @ R[o:o + p]
+            for r in range(o + p, Np, chunk):
+                e = min(r + chunk, Np)
+                R[r:e] -= L[r:e, o:o + p] @ R[o:o + p]
+        R[lo:] /= d[lo:, None]
+        for k in reversed(range(k0, nbp)):
+            o = k * p
+            R[o:o + p] = V[o:o + p].T @ R[o:o + p]
+            for r in range(lo, o, chunk):
+                e = min(r + chunk, o)
+                R[r:e] -= L[o:o + p, r:e].T @ R[o:o + p]
+        wn = min(width, N - j0)
+        Kinv[lo:N, j0:j0 + wn] = R[lo:N, :wn]
+        Kinv[j0:j0 + wn, j0 + width:N] = R[j0 + width:N, :wn].T
+    return Kinv
+
+
+@pytest.mark.parametrize('N,nblk,width,chunk', [(7, 3, 16, 256),
+                                                (40, 13, 16, 256),
+                                                (40, 13, 32, 256),
+                                                (70, 30, 32, 16)])
+def test_inverse_schedule_matches_plain(N, nblk, width, chunk):
+    """K7's schedule (exact zeros skipped, the lower triangle computed, the
+    upper one mirrored, L applied in chunks: at N=70 chunks of 16 stand in
+    for the kernel's 256 above Np = 272) gives ldl_inverse_plain's Kinv,
+    float64, and covers every entry once."""
+    K, signs = _quasidefinite(2, N, nblk, np.random.default_rng(N + width))
+    fac = ldl_kernel.ldl_factor_plain(torch.tensor(K), signs, 1e-9)
+    ref = ldl_kernel.ldl_inverse_plain(fac)
+    for b in range(2):
+        _close(_inverse_tiled(fac, b, width, chunk), ref[b], tol=1e-9)
+
+
+def _well_conditioned(B, n, m, rng):
+    """A quasidefinite batch with singular values near 1 at any size:
+    [[A A' / n + I, C' / sqrt(n)], [C / sqrt(n), -I]]."""
+    A = rng.standard_normal((B, n, n))
+    C = rng.standard_normal((B, m, n)) / np.sqrt(n)
+    K = np.zeros((B, n + m, n + m))
+    K[:, :n, :n] = A @ np.swapaxes(A, 1, 2) / n + np.eye(n)
+    K[:, n:, :n] = C
+    K[:, :n, n:] = np.swapaxes(C, 1, 2)
+    K[:, n:, n:] = -np.eye(m)
+    return K, np.concatenate([np.ones(n), -np.ones(m)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N', [7, 40, 161, 801, 1601])
+def test_inverse_kernel_matches_plain_on_card(N):
+    """On a card, K7 at both tile widths against its plain version on K6's
+    factor (1e-4 of max(1, |v|_inf) per instance); the widths agree to the
+    bit on the lower triangle, and a second call is bitwise equal.  N=801
+    applies L in chunks; N=1601 keeps R in the device scratch."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the card: chip_smoke.py phase 10)')
+    rng = np.random.default_rng(N)
+    if N <= 161:
+        K, signs = _quasidefinite(5, N, N // 3, rng)
+    else:
+        K, signs = _well_conditioned(2, N // 2, N - N // 2, rng)
+    Kc = torch.tensor(K, dtype=torch.float32, device='cuda')
+    fac = ldl_kernel.ldl_factor_kernel(Kc, signs, 1e-4)
+    ref = ldl_kernel.ldl_inverse_plain(fac).double().flatten(1)
+    lower = torch.tril(torch.ones(N, N, dtype=torch.bool, device='cuda'))
+    first = ldl_kernel.ldl_inverse_kernel(fac)
+    assert torch.equal(ldl_kernel.ldl_inverse_kernel(fac), first)
+    for w in (16, 32):
+        out = ldl_kernel._inverse_launch(fac, w)
+        a = out.double().flatten(1)
+        scale = torch.clamp(ref.abs().amax(dim=1), min=1.0)
+        assert float(((a - ref).abs().amax(dim=1) / scale).max()) <= 1e-4
+        assert torch.equal(out[:, lower], first[:, lower])
