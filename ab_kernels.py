@@ -10,7 +10,8 @@ KERNEL is one of:
 - k6: K6 (csrc/ldl_factor.cu) at the entropy family's shape (B=1024,
   N=161, Np=176, float32) on a seeded random quasidefinite K ([[G G' + I,
   C'], [C, -I]]): three runs of 20 launches after three warm-up launches;
-  the first pivots show both checkouts factor the same K;
+  L, d and Linv are kept under build/ab_k6/ and each run prints its
+  largest difference to every other checkout's kept there;
 - k3: K3 (csrc/admm_iterate.cu), 15 iterations on the MPC per-instance
   data at B=2048 (the checkout's chip_smoke.k3_inputs): three runs of 10
   launches after one; the largest entry of x shows both compute the same;
@@ -42,6 +43,16 @@ KERNEL is one of:
   iterations and the parity against logsumexp(c).  Where one checkout's
   K7 computes the upper triangle and the other mirrors the lower one,
   this shows what the mirror does to the solve.
+- k9, k10: K9 (ldl_factor_inverse_kernel) or K10 (ldl_kinv_kernel) on
+  k6's seeded K and on K of that construction at (B=64, N=321), (4, 801)
+  and (4, 1601): three runs of 20, 20, 10 and 5 launches after three, and
+  K6 + K7 on the same K beside each; Kinv is kept under build/ab_k9/ or
+  build/ab_k10/ and compared the same way; then the
+  entropy batch (as for k7, seeds 5, 6 and 7) under CPG_LDL_FUSED=1 (k9)
+  or CPG_LDL_BM_FUSED=1 (k10): solved, mean and largest iterations,
+  parity; k9 also the ADP batch (the checkout's chip_smoke.py set-up,
+  B=1024) through the two-level 'ldl' route under CPG_LDL_FUSED=1:
+  solved, mean and largest iterations.
 - k5: K5 (csrc/banded_chunk.cu) at MPC H=30, B=2048 (the checkout's
   chip_smoke.py set-up, 15 iterations from the start state): three runs
   of 5 launches after one; x, z, y, the residuals and the flags are kept
@@ -49,8 +60,8 @@ KERNEL is one of:
   the MPC H=30 batch through the checkout's engine, its mean iterations.
 
 Builds that checkout's kernel, times it by CUDA events and prints one line
-per mode.  Needs a CUDA device.  Delete build/ab_k4, build/ab_k5 and
-build/ab_k7 before a new A/B."""
+per mode.  Needs a CUDA device.  Delete build/ab_k4 ... build/ab_k10
+before a new A/B."""
 import os
 import sys
 
@@ -84,11 +95,11 @@ def keep_and_compare(name, label, outs):
     return ', '.join(others) or 'none yet'
 
 
-def entropy_kkt():
+def entropy_kkt(B=1024, N=161, nb=64):
     """A seeded quasidefinite batch of the entropy family's KKT shape
-    (B=1024, N=161): [[G G' + I, C'], [C, -I]], and its pivot signs."""
+    (B=1024, N=161, nb=64 primal rows by default): [[G G' + I, C'],
+    [C, -I]], and its pivot signs."""
     rng = np.random.default_rng(0)
-    B, N, nb = 1024, 161, 64
     P = rng.standard_normal((B, nb, nb))
     K = np.zeros((B, N, N))
     K[:, :nb, :nb] = P @ np.swapaxes(P, 1, 2) + np.eye(nb)
@@ -109,18 +120,16 @@ def time_k6(label):
     torch.cuda.synchronize()
     means = [cuda_ms(lambda: lk.ldl_factor_kernel(Kc, signs, 1e-4), 20)[0]
              for _ in range(3)]
+    others = keep_and_compare('ab_k6', label,
+                              [fac['L'], fac['d'], fac['Linv']])
     print(f'# K6 {label}: ' + ' '.join(f'{m:.4f}' for m in means)
           + ' ms per launch; d[0, :3] '
-          + ' '.join(f'{v:.6e}' for v in fac['d'][0, :3].tolist()),
-          flush=True)
+          + ' '.join(f'{v:.6e}' for v in fac['d'][0, :3].tolist())
+          + '; max |L, d, Linv - those of| ' + others, flush=True)
 
 
 def time_k7(label, cs):
-    import cvxpygen_tpu_torch as ct
-    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
     from cvxpygen_tpu_torch.ops import ldl_kernel as lk
-    from cvxpygen_tpu_torch.runtime.solver import CompiledConicSolver
-    from cvxpygen_tpu_torch.solvers.ipm import IPMSettings
     lk.build_factor_kernel()
     lk.build_inverse_kernel()
     Kc, signs = entropy_kkt()
@@ -137,6 +146,18 @@ def time_k7(label, cs):
           + f' ms per launch (B={Kinv.shape[0]}, N={N}); max |Kinv| '
           f'{float(Kinv.abs().max()):.6e}; max |lower - lower of| ' + others,
           flush=True)
+    entropy_solves('K7', label, cs)
+
+
+def entropy_solves(tag, label, cs):
+    """The entropy batch (the checkout's chip_smoke.py set-up, n=32,
+    B=1024) solved with c drawn from default_rng(5), (6) and (7) through the
+    route the environment picks: for each seed, the instances solved, the
+    mean and largest iterations and the parity against logsumexp(c)."""
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.runtime.solver import CompiledConicSolver
+    from cvxpygen_tpu_torch.solvers.ipm import IPMSettings
     prob, c = cs.entropy_problem(ct, cs.ENTROPY_N)
     cvs = {seed: np.random.default_rng(seed).normal(
         size=(cs.B_ENTROPY, cs.ENTROPY_N)) for seed in (5, 6, 7)}
@@ -151,11 +172,67 @@ def time_k7(label, cs):
         obj = -(out['obj'] + out['d']).double().cpu().numpy()
         max_rel, n_bad = cs.parity(obj, np.log(np.sum(np.exp(cv), axis=1)))
         iters = out['iters'].float()
-        print(f'# K7 {label}: entropy seed {seed}: solved '
+        print(f'# {tag} {label}: entropy seed {seed}: solved '
               f'{int((out["status"] == 1).sum())} of {cs.B_ENTROPY}, mean '
               f'iters {float(iters.mean()):.4f} (max {int(iters.max())}), '
               f'parity max rel {max_rel:.3e} ({n_bad} non-finite)',
               flush=True)
+
+
+# the fused kernel's A/B shapes (B, N, launches per run): the entropy
+# family's, its n=64 twin's and two where the factor lives in a device
+# scratch
+FUSED_SHAPES = ((1024, 161, 20), (64, 321, 20), (4, 801, 10), (4, 1601, 5))
+
+
+def time_fused(mode, label, cs):
+    import dataclasses
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    from cvxpygen_tpu_torch.runtime.solver import CompiledConicSolver
+    from cvxpygen_tpu_torch.solvers.ipm import IPMSettings
+    tag, kname, var = {
+        'k9': ('K9', 'ldl_factor_inverse_kernel', 'CPG_LDL_FUSED'),
+        'k10': ('K10', 'ldl_kinv_kernel', 'CPG_LDL_BM_FUSED')}[mode]
+    kern = getattr(lk, kname)
+    kept = []
+    for B, N, reps in FUSED_SHAPES:
+        Kc, signs = entropy_kkt(B, N, (2 * N) // 5)
+        for _ in range(3):
+            Kinv = kern(Kc, signs, 1e-4)
+        torch.cuda.synchronize()
+        means = [cuda_ms(lambda: kern(Kc, signs, 1e-4), reps)[0]
+                 for _ in range(3)]
+        fac = lk.ldl_factor_kernel(Kc, signs, 1e-4)
+        k67 = [cuda_ms(lambda: lk.ldl_factor_kernel(Kc, signs, 1e-4),
+                       reps)[0]
+               + cuda_ms(lambda: lk.ldl_inverse_kernel(fac), reps)[0]
+               for _ in range(3)]
+        kept.append(Kinv)
+        print(f'# {tag} {label}: ' + ' '.join(f'{m:.4f}' for m in means)
+              + f' ms per launch (B={B}, N={N}); K6 + K7 '
+              + ' '.join(f'{m:.4f}' for m in k67) + f' ms; max |Kinv| '
+              f'{float(Kinv.abs().max()):.6e}', flush=True)
+    others = keep_and_compare(f'ab_{mode}', label, kept)
+    print(f'# {tag} {label}: max |Kinv - Kinv of| ' + others, flush=True)
+    os.environ[var] = '1'
+    entropy_solves(tag, label + f' under {var}=1', cs)
+    if mode != 'k9':
+        return
+    prob = cs.assign_adp(cs.adp_problem(ct))
+    fam = canonicalize(prob)
+    st = IPMSettings.for_dtype(torch.float32, **cs.ADP_SETTINGS)
+    solver = CompiledConicSolver(fam, settings=st, dtype=torch.float32,
+                                 device='cuda')
+    out = solver.solve_batch(
+        cs.adp_batch(fam, prob, cs.B_ADP),
+        settings=dataclasses.replace(st, kkt_solver='ldl',
+                                     ldl_two_level=True))
+    iters = out['iters'].float()
+    print(f'# K9 {label}: ADP two-level under {var}=1: solved '
+          f'{int((out["status"] == 1).sum())} of {cs.B_ADP}, mean iters '
+          f'{float(iters.mean()):.4f} (max {int(iters.max())})', flush=True)
 
 
 def time_k5(label, cs):
@@ -318,6 +395,8 @@ def main():
         time_k6(label)
     elif kernel == 'k7':
         time_k7(label, cs)
+    elif kernel in ('k9', 'k10'):
+        time_fused(kernel, label, cs)
     elif kernel == 'k5':
         time_k5(label, cs)
     elif kernel == 'k4':
@@ -329,7 +408,8 @@ def main():
     elif kernel == 'k1':
         time_k1(label, cs)
     else:
-        sys.exit(f'unknown kernel {kernel!r}: k1, k2, k3, k4, k5, k6 or k7')
+        sys.exit(f'unknown kernel {kernel!r}: k1, k2, k3, k4, k5, k6, k7, '
+                 'k9 or k10')
 
 
 if __name__ == '__main__':

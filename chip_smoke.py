@@ -9,10 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. build kernels K1 (csrc/admm_shared.cu), K2 (csrc/admm_full.cu), K3
    (csrc/admm_iterate.cu), K4 (csrc/cr_solve.cu), K5
    (csrc/banded_chunk.cu), K6 (csrc/ldl_factor.cu), K7
-   (csrc/ldl_inverse.cu), K8 (csrc/ldl_solve.cu), K9
-   (csrc/ldl_factor_inverse.cu), K10 (csrc/ldl_kinv.cu) and K11
-   (csrc/banded_iterate.cu), one nvcc for sm_90a each, all started
-   together, and identify the card;
+   (csrc/ldl_inverse.cu), K8 (csrc/ldl_solve.cu), the fused kernel of K9
+   and K10 (csrc/ldl_kinv.cu) and K11 (csrc/banded_iterate.cu), one nvcc
+   for sm_90a each, all started together, and identify the card;
 2. K1 against its plain torch version on the card, on the scaled MPC data
    (n=222, m=252) that the shared main path hands it, at B=256 (the rho
    group of the rule, 256, and pinned chunks 8, 4, 2 and 1, whose thread
@@ -134,18 +133,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    B=1024, within 1e-2 of the float64 oracle on 16 instances, and the same
    batch through kkt_solver='ldl' with ldl_two_level=True (K6 + K7 on the
    saddle block once and on the Schur complement each iteration);
-12. K9 (csrc/ldl_factor_inverse.cu) and K10 (csrc/ldl_kinv.cu), the fused
-   factor + inverse, on phase 10's first-iteration K: each within twice its
-   float32 plain version's distance from the float64 inverse of the
-   pivot-regularized K (plus LDL_APPLY_FLOOR), by both measures, beside K6 +
-   K7; on a well-conditioned K (N=24) within FUSED_WELL_TOL of the float64
-   inverse; times beside K6 + K7, the plain versions, torch.linalg.inv(K)
-   and the bound; then the entropy batch of phase 11 under
-   CPG_LDL_FUSED=1 (K9) and under CPG_LDL_BM_FUSED=1 (K10), and the ADP
-   batch through the two-level route under CPG_LDL_FUSED=1 (K9 on both
-   levels): every instance solved within the parity bar, the fused kernel
-   launched about once per iteration and K6, K7, K8 never (the variables
-   are set and restored inside the phase);
+12. K9 and K10, the fused factor + inverse (one kernel, csrc/ldl_kinv.cu,
+   behind two wrappers), on phase 10's first-iteration K (N=161, B=1024)
+   and its n=64 twin (N=321, B=64: the factor in the device scratch):
+   bitwise equal to K7 on K6's factor, both triangles; on the first K each
+   within twice its float32 plain version's distance from the float64
+   inverse of the pivot-regularized K (plus LDL_APPLY_FLOOR), by both
+   measures; on a well-conditioned K (N=24) within FUSED_WELL_TOL of the
+   float64 inverse; at N=801 and N=1601, B=4 (phase 10's well-conditioned
+   K; the factor and R in the scratch) within LDL_TOL of each plain
+   version and bitwise equal to K6 + K7; the layout rule (kinv_layout)
+   held to the library's; times of K9 and K10 beside K6 + K7 timed in the
+   same phase, the plain versions, torch.linalg.inv(K) and the bound; then
+   the entropy batch of phase 11 under CPG_LDL_FUSED=1 (K9) and under
+   CPG_LDL_BM_FUSED=1 (K10): every instance solved within the parity bar,
+   per-instance iterations and status equal to the default K6 + K7
+   route's, the fused kernel launched as often as K6 there and K6, K7, K8
+   never; and the ADP batch through the two-level route under
+   CPG_LDL_FUSED=1 (K9 on both levels): every instance solved within the
+   parity bar, per-instance iterations and status equal to the K6 + K7
+   two-level route's, and every K that route gave K9 (the saddle block
+   Ktop, N=26, and the Schur complement S, N=10, at B=1024) bitwise K6 +
+   K7's and within LDL_TOL of each plain version (the variables are set
+   and restored inside the phase);
 13. K11 (csrc/banded_iterate.cu) on charging T=1440, B=256 (phase 9's batch
    and settings; the shared engine's set-up through the port's own
    functions): from the state that 100 iterations of the K4 route reach,
@@ -376,7 +386,6 @@ def phase_build():
             ('ldl_factor.cu', k678.build_factor_kernel),
             ('ldl_inverse.cu', k678.build_inverse_kernel),
             ('ldl_solve.cu', k678.build_solve_kernel),
-            ('ldl_factor_inverse.cu', k678.build_factor_inverse_kernel),
             ('ldl_kinv.cu', k678.build_kinv_kernel),
             ('banded_iterate.cu', k45.build_iterate_kernel))
     with ThreadPoolExecutor(len(srcs)) as ex:
@@ -2179,6 +2188,21 @@ def k7_large_batch(B=70000, n=3, m=4):
     check(err <= LDL_TOL, f'K7 at B={B}: {err:.3e} > {LDL_TOL}')
 
 
+def well_conditioned_large(N, B, g):
+    """A well-conditioned quasidefinite K ([[A A' / n + I, C' / sqrt(n)],
+    [C / sqrt(n), -I]], n = N // 2) from the generator g on the card, and
+    its pivot signs."""
+    n, m = N // 2, N - N // 2
+    A = torch.randn((B, n, n), generator=g, device='cuda')
+    C = torch.randn((B, m, n), generator=g, device='cuda') / n ** 0.5
+    K = torch.zeros((B, N, N), device='cuda')
+    K[:, :n, :n] = A @ A.transpose(1, 2) / n + torch.eye(n, device='cuda')
+    K[:, n:, :n] = C
+    K[:, :n, n:] = C.transpose(1, 2)
+    K[:, n:, n:] = -torch.eye(m, device='cuda')
+    return K, np.concatenate([np.ones(n), -np.ones(m)])
+
+
 def k7_large_n(card, Ns=(801, 1601), B=4):
     """K7 where a stage could not hold a panel's whole block of L (N=801:
     L applied in chunks of 256 rows, R resident) and where R does not fit
@@ -2190,15 +2214,7 @@ def k7_large_n(card, Ns=(801, 1601), B=4):
     from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
     g = torch.Generator(device='cuda').manual_seed(3)
     for N in Ns:
-        n, m = N // 2, N - N // 2
-        A = torch.randn((B, n, n), generator=g, device='cuda')
-        C = torch.randn((B, m, n), generator=g, device='cuda') / n ** 0.5
-        K = torch.zeros((B, N, N), device='cuda')
-        K[:, :n, :n] = A @ A.transpose(1, 2) / n + torch.eye(n, device='cuda')
-        K[:, n:, :n] = C
-        K[:, :n, n:] = C.transpose(1, 2)
-        K[:, n:, n:] = -torch.eye(m, device='cuda')
-        signs = np.concatenate([np.ones(n), -np.ones(m)])
+        K, signs = well_conditioned_large(N, B, g)
         plan = lk.inverse_plan(N)
         with full_f32_matmul():
             fac = lk.ldl_factor_kernel(K, signs, 1e-4)
@@ -2445,6 +2461,7 @@ def phase_conic(card, dev='cuda'):
 
     # phase 11: the main path at full width
     launches = {}
+    default_out = None
     for label, st in (('K6 + K7', est),
                       ('K6 + K8', dataclasses.replace(est,
                                                       ldl_inverse=False))):
@@ -2470,6 +2487,7 @@ def phase_conic(card, dev='cuda'):
             check(counts[1] > 0 and counts[2] == 0, f'{label}: launches')
             launches['ldl_factor'] = counts[0]
             launches['ldl_inverse'] = counts[1]
+            default_out = out
         else:
             check(counts[2] > 0 and counts[1] == 0, f'{label}: launches')
             launches['ldl_solve'] = counts[2]
@@ -2536,8 +2554,9 @@ def phase_conic(card, dev='cuda'):
     check(counts[1] == counts[0] > 1 and counts[2] == 0,
           f'two-level launches {counts}')
     fused_numbers, fused_launches = phase_fused(
-        card, K0, s0, dd, esolver, etheta, est, lse, asolver, atheta, tst,
-        arefs)
+        card, (K0, s0), (KL, sL), dd, esolver, etheta, est, lse,
+        (default_out, launches['ldl_factor']), asolver, atheta, tst, arefs,
+        out)
     return numbers, launches, fused_numbers, fused_launches
 
 
@@ -2560,9 +2579,12 @@ def fused_bound(B, N):
     return bound(ops, nbytes) + (ops, nbytes)
 
 
+# (name, tag, wrapper, plain version, the variable that routes the IPM to
+# it); both wrappers launch the one fused kernel, csrc/ldl_kinv.cu
 FUSED = (('ldl_factor_inverse', 'K9', 'ldl_factor_inverse_kernel',
-          'ldl_factor_inverse_plain'),
-         ('ldl_kinv', 'K10', 'ldl_kinv_kernel', 'ldl_kinv_plain'))
+          'ldl_factor_inverse_plain', 'CPG_LDL_FUSED'),
+         ('ldl_kinv', 'K10', 'ldl_kinv_kernel', 'ldl_kinv_plain',
+          'CPG_LDL_BM_FUSED'))
 
 
 @contextlib.contextmanager
@@ -2593,27 +2615,56 @@ def well_conditioned_kkt(B, dev, n=10, mc=14, seed=11):
     return K, np.concatenate([np.ones(n), -np.ones(mc)])
 
 
+def fused_bitwise(K, signs, dd, label):
+    """K9 and K10 on K against K7 on K6's factor of K: bitwise equal, both
+    triangles; the fused kernel's layout rule (kinv_layout) held to the
+    library's.  Returns K6 + K7's Kinv and each wrapper's."""
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    B, N, _ = K.shape
+    k67 = lk.ldl_inverse_kernel(lk.ldl_factor_kernel(K, signs, dd))
+    outs = {}
+    for name, tag, kname, _, _ in FUSED:
+        out = getattr(lk, kname)(K, signs, dd)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f'{tag} at {label}: '
+              'non-finite Kinv')
+        check(torch.equal(out, k67), f'{tag} at {label}: '
+              f'{int((out != k67).sum())} entries differ from K6 + K7')
+        outs[name] = out
+    lay = lk.kinv_layout(N)
+    check(lk._LIB_KINV.ldl_kinv_smem_bytes(lay['Np'], lay['p'], lay['width'],
+                                           lay['layout_id'])
+          == lay['smem_bytes']
+          and lk._LIB_KINV.ldl_kinv_scratch_words(
+              lay['Np'], lay['p'], lay['width'], lay['layout_id'])
+          == lay['scratch_words'], f'fused layout rule at N={N}')
+    print(f'# phase 12: K9 and K10 at {label} (layout {lay["layout"]}, '
+          f'{lay["smem_bytes"]} B of shared memory, {lay["blocks_per_sm"]} '
+          'blocks per SM): bitwise equal to K7 on K6\'s factor, both '
+          'triangles')
+    return k67, outs
+
+
 def compare_fused(K, signs, dd, card):
-    """K9 and K10 on the entropy family's first-iteration K, beside their
-    plain versions and K6 + K7, each held to the float64 inverse of the
+    """K9 and K10 on the entropy family's first-iteration K: bitwise equal
+    to K6 + K7 (fused_bitwise); each held to the float64 inverse of the
     pivot-regularized K (its plain version in float64): within twice the
-    float32 plain version's distance plus LDL_APPLY_FLOOR, by both
-    measures of entry_errs (phase 10's rule for K7); then both on a
-    well-conditioned K within FUSED_WELL_TOL of its float64 inverse; then
-    their times, K6 + K7's, the plain versions' and torch.linalg.inv(K)'s.
-    Returns each kernel's numbers."""
+    float32 plain version's distance plus LDL_APPLY_FLOOR, by both measures
+    of entry_errs (phase 10's rule for K7); then both on a well-conditioned
+    K within FUSED_WELL_TOL of its float64 inverse; then their times beside
+    K6's and K7's, the plain versions' and torch.linalg.inv(K)'s.  Returns
+    each kernel's numbers."""
     from cvxpygen_tpu_torch.ops import ldl_kernel as lk
     from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
     B, N, _ = K.shape
     numbers = {}
     with full_f32_matmul():
-        k67 = lk.ldl_inverse_kernel(lk.ldl_factor_kernel(K, signs, dd))
+        k67, outs = fused_bitwise(K, signs, dd, f'the first-iteration K '
+                                  f'(N={N}, B={B})')
         Kw, sw = well_conditioned_kkt(B_FUSED_WELL, K.device)
-        for name, tag, kname, pname in FUSED:
+        for name, tag, kname, pname, _ in FUSED:
             kern, plain = getattr(lk, kname), getattr(lk, pname)
-            out = kern(K, signs, dd)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(out).all()), f'{tag}: non-finite Kinv')
+            out = outs[name]
             ref = plain(K, signs, dd)
             exact = plain(K.double(), signs, dd)
             ek, ep = entry_errs(out, exact), entry_errs(ref, exact)
@@ -2626,9 +2677,9 @@ def compare_fused(K, signs, dd, card):
                   f'max(1, |v|_inf) and median entry |d| / |v|, worst '
                   f'instance: kernel {ek[0]:.3e} and {ek[1]:.3e}, plain '
                   f'{ep[0]:.3e} and {ep[1]:.3e}, K6 + K7 {e67[0]:.3e} and '
-                  f'{e67[1]:.3e}; kernel to plain {to_plain:.3e}; '
-                  f'well-conditioned N=24, B={B_FUSED_WELL}: {well:.3e} '
-                  f'(bar {FUSED_WELL_TOL})')
+                  f'{e67[1]:.3e}; kernel to '
+                  f'plain {to_plain:.3e}; well-conditioned N=24, '
+                  f'B={B_FUSED_WELL}: {well:.3e} (bar {FUSED_WELL_TOL})')
             for what, a, b in zip(('max', 'median entry'), ek, ep):
                 check(a <= 2 * b + LDL_APPLY_FLOOR, f'{tag}: {what} error '
                       f'{a:.3e} > 2 x plain {b:.3e} + {LDL_APPLY_FLOOR}')
@@ -2636,33 +2687,76 @@ def compare_fused(K, signs, dd, card):
                   f'{tag}: well-conditioned K {well:.3e} > {FUSED_WELL_TOL}')
             numbers[name] = dict(max_abs_err=to_plain)
     fac = lk.ldl_factor_kernel(K, signs, dd)
-    k67_ms = (cuda_ms(lambda: lk.ldl_factor_kernel(K, signs, dd), 10)[0]
-              + cuda_ms(lambda: lk.ldl_inverse_kernel(fac), 10)[0])
+    k6_ms = cuda_ms(lambda: lk.ldl_factor_kernel(K, signs, dd), 10)[0]
+    k7_ms = cuda_ms(lambda: lk.ldl_inverse_kernel(fac), 10)[0]
     torch.linalg.inv(K)                   # its first call sets up cuSOLVER
     lib_ms = cuda_ms(lambda: torch.linalg.inv(K), 3)[0]
     bound_ms, bound_by, ops, nbytes = fused_bound(B, N)
-    # K9 by instances per thread block (no answer depends on it)
-    by_group = {g: lk.ldl_factor_inverse_kernel(K, signs, dd, group=g)
-                for g in (8, 4, 2)}
-    group_ms = {g: cuda_ms(lambda: lk.ldl_factor_inverse_kernel(
-        K, signs, dd, group=g), 10)[0] for g in by_group}
-    print('# phase 12: K9 by instances per block: '
-          + ', '.join(f'{g}: {ms:.4f} ms' for g, ms in group_ms.items())
-          + f' (the wrapper takes {lk.FI_GROUP}) [{card}]')
-    check(all(torch.equal(v, by_group[8]) for v in by_group.values()),
-          'K9: the answer depends on the instances per block')
-    for name, tag, kname, pname in FUSED:
+    for name, tag, kname, pname, _ in FUSED:
         kern, plain = getattr(lk, kname), getattr(lk, pname)
         ms = cuda_ms(lambda: kern(K, signs, dd), 10)[0]
         plain_ms = cuda_ms(lambda: plain(K, signs, dd), 2)[0]
         numbers[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=lib_ms)
         print(f'# phase 12: {name} ({tag}) at B={B}, N={N}: kernel '
-              f'{ms:.4f} ms, K6 + K7 {k67_ms:.4f} ms, plain {plain_ms:.4f} '
-              f'ms, torch.linalg.inv(K) {lib_ms:.4f} ms, bound '
-              f'{bound_ms:.5f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP FP32, '
+              f'{ms:.4f} ms, K6 + K7 {k6_ms + k7_ms:.4f} ms (K6 {k6_ms:.4f}, '
+              f'K7 {k7_ms:.4f}), plain {plain_ms:.4f} ms, '
+              f'torch.linalg.inv(K) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms '
+              f'({bound_by}; {ops / 1e9:.2f} GFLOP FP32, '
               f'{nbytes / 1e6:.1f} MB) [{card}]')
     return numbers
+
+
+def fused_exact(K, signs, dd, label):
+    """fused_bitwise, and K9 and K10 each within LDL_TOL * max(1, |v|_inf)
+    per instance of its plain version.  Returns those distances, by
+    name."""
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
+    with full_f32_matmul():
+        _, outs = fused_bitwise(K, signs, dd, label)
+        errs = {}
+        for name, tag, _, pname, _ in FUSED:
+            ref = getattr(lk, pname)(K, signs, dd)
+            errs[name] = float(inst_err(outs[name], ref).max())
+            check(errs[name] <= LDL_TOL,
+                  f'{tag} at {label}: {errs[name]:.3e} > {LDL_TOL}')
+    return errs
+
+
+@contextlib.contextmanager
+def recorded_calls(module, name):
+    """``module.name`` wrapped for the block so that each call keeps its
+    arguments (K cloned) in the list yielded."""
+    fn, calls = getattr(module, name), []
+
+    def record(K, *args):
+        calls.append((K.clone(), *args))
+        return fn(K, *args)
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def fused_large_n(card, Ns=(801, 1601), B=4):
+    """K9 and K10 where the factor and R live in the device scratch, on
+    phase 10's well-conditioned K: fused_exact; the fused kernel's time
+    beside K6 + K7's."""
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    g = torch.Generator(device='cuda').manual_seed(3)
+    for N in Ns:
+        K, signs = well_conditioned_large(N, B, g)
+        errs = fused_exact(K, signs, 1e-4, f'N={N}, B={B}')
+        ms = cuda_ms(lambda: lk.ldl_kinv_kernel(K, signs, 1e-4), 3)[0]
+        fac = lk.ldl_factor_kernel(K, signs, 1e-4)
+        k67_ms = (cuda_ms(lambda: lk.ldl_factor_kernel(K, signs, 1e-4), 3)[0]
+                  + cuda_ms(lambda: lk.ldl_inverse_kernel(fac), 3)[0])
+        print(f'# phase 12: K9 and K10 at N={N}, B={B}: max |d| / max(1, '
+              f'|v|_inf) to their plain versions '
+              + ', '.join(f'{t} {errs[n]:.3e}' for n, t, *_ in FUSED)
+              + f'; fused {ms:.4f} ms, K6 + K7 {k67_ms:.4f} ms [{card}]')
 
 
 def fused_counts():
@@ -2678,20 +2772,31 @@ def reset_fused_counts():
         getattr(lk, k).launches = 0
 
 
-def phase_fused(card, K, signs, dd, esolver, etheta, est, lse, asolver,
-                atheta, tst, arefs):
-    """Phase 12: K9 and K10 against their plain versions on the entropy KKT
-    matrix, then the 'ldl' IPM through each: entropy B=1024 under
-    CPG_LDL_FUSED=1 (K9) and under CPG_LDL_BM_FUSED=1 (K10), ADP through
-    the two-level route under CPG_LDL_FUSED=1 (K9 on both levels); each
-    with every instance solved within the parity bar, the fused kernel
-    launched about once per iteration and K6, K7 and K8 never.  The
-    variables are set and restored here.  Returns the kernels' numbers and
-    the launches of their entropy runs."""
-    numbers = compare_fused(K, signs, dd, card)
+def phase_fused(card, first, twin, dd, esolver, etheta, est, lse, default,
+                asolver, atheta, tst, arefs, two_level_out):
+    """Phase 12: K9 and K10 on the entropy KKT matrices (``first``: phase
+    10's first-iteration K and signs, N=161, B=1024; ``twin``: the n=64
+    twin, N=321, B=64) and at N=801 and 1601, then the 'ldl' IPM through
+    each: entropy B=1024 under CPG_LDL_FUSED=1 (K9) and under
+    CPG_LDL_BM_FUSED=1 (K10), each with every instance solved within the
+    parity bar, per-instance iterations and status equal to the default
+    route's (``default``: phase 11's K6 + K7 result and its K6 launches),
+    the fused kernel launched as often as K6 there and K6, K7 and K8 never;
+    ADP through the two-level route under CPG_LDL_FUSED=1 (K9 on both
+    levels), every instance solved within the parity bar, per-instance
+    iterations and status equal to the K6 + K7 two-level route's
+    (``two_level_out``), and every K that route gave K9 (the saddle block
+    Ktop once, the Schur complement S every iteration) held by
+    fused_exact.  The variables are set and restored here.  Returns the
+    kernels' numbers and the launches of their entropy runs."""
+    numbers = compare_fused(*first, dd, card)
+    KL, sL = twin
+    fused_bitwise(KL, sL, dd, f'the n=64 twin (N={KL.shape[1]}, '
+                  f'B={KL.shape[0]})')
+    fused_large_n(card)
+    default_out, k6_launches = default
     launches = {}
-    for name, tag, kname, _ in FUSED:
-        var = 'CPG_LDL_FUSED' if tag == 'K9' else 'CPG_LDL_BM_FUSED'
+    for name, tag, kname, _, var in FUSED:
         with env_set(var, '1'):
             reset_fused_counts()
             out = esolver.solve_batch(etheta, settings=est)
@@ -2700,22 +2805,31 @@ def phase_fused(card, K, signs, dd, esolver, etheta, est, lse, asolver,
             t0 = time.perf_counter()
             reps = 2
             for _ in range(reps):
-                out = esolver.solve_batch(etheta, settings=est)
+                esolver.solve_batch(etheta, settings=est)
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) / reps
-        iters = int(out['iters'].max())
         gate_conic(f'entropy n={ENTROPY_N} under {var}=1 ({tag})', out, lse,
                    dt, f'{tag} {counts[kname]}, K6 '
                    f'{counts["ldl_factor_kernel"]}, K7 '
                    f'{counts["ldl_inverse_kernel"]}', card, maximize=True,
                    phase='phase 12')
-        check(0 < counts[kname] <= iters + 1,
-              f'{var}: {tag} launched {counts[kname]} times in {iters} '
-              'iterations')
+        n_iters = int((out['iters'] != default_out['iters']).sum())
+        n_status = int((out['status'] != default_out['status']).sum())
+        print(f'# phase 12: entropy under {var}=1 ({tag}) against the '
+              f'default K6 + K7 route: {n_iters} instances at other '
+              f'iterations, {n_status} of other status; {tag} launched '
+              f'{counts[kname]} times, K6 {k6_launches} on the default route')
+        check(n_iters == 0 and n_status == 0,
+              f'{var}: iterations or status differ from the default route')
+        check(counts[kname] == k6_launches,
+              f'{var}: {tag} launched {counts[kname]} times, K6 '
+              f'{k6_launches} on the default route')
         check(sum(v for k, v in counts.items() if k != kname) == 0,
               f'{var}: other LDL kernels launched: {counts}')
         launches[name] = counts[kname]
-    with env_set('CPG_LDL_FUSED', '1'):
+    from cvxpygen_tpu_torch.solvers import ipm
+    with env_set('CPG_LDL_FUSED', '1'), recorded_calls(
+            ipm, 'ldl_factor_inverse_kernel') as calls:
         reset_fused_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2731,6 +2845,27 @@ def phase_fused(card, K, signs, dd, esolver, etheta, est, lse, asolver,
     check(counts['ldl_factor_inverse_kernel'] > 1
           and sum(counts.values()) == counts['ldl_factor_inverse_kernel'],
           f'two-level under CPG_LDL_FUSED=1: launches {counts}')
+    check(len(calls) == counts['ldl_factor_inverse_kernel'],
+          f'two-level: {len(calls)} calls recorded, '
+          f'{counts["ldl_factor_inverse_kernel"]} K9 launches')
+    for i, (K, signs, dd_i) in enumerate(calls):
+        label = (f'the ADP two-level route\'s '
+                 f'{"Ktop" if i == 0 else f"S of iteration {i}"} '
+                 f'(N={K.shape[1]}, B={K.shape[0]})')
+        errs = fused_exact(K, signs, dd_i, label)
+        print(f'# phase 12: K9 and K10 at {label}: max |d| / max(1, |v|_inf) '
+              'to their plain versions '
+              + ', '.join(f'{t} {errs[n]:.3e}' for n, t, *_ in FUSED))
+    it, it67 = out['iters'].float(), two_level_out['iters'].float()
+    n_iters = int((out['iters'] != two_level_out['iters']).sum())
+    n_status = int((out['status'] != two_level_out['status']).sum())
+    print(f'# phase 12: ADP two-level under CPG_LDL_FUSED=1: mean iters '
+          f'{float(it.mean()):.4f} (max {int(it.max())}), the K6 + K7 '
+          f'two-level route {float(it67.mean()):.4f} (max {int(it67.max())}); '
+          f'{n_iters} instances at other iterations, {n_status} of other '
+          'status')
+    check(n_iters == 0 and n_status == 0, 'ADP two-level under '
+          'CPG_LDL_FUSED=1: iterations or status differ from K6 + K7')
     check('CPG_LDL_FUSED' not in os.environ
           and 'CPG_LDL_BM_FUSED' not in os.environ,
           'phase 12 left a variable set')
@@ -3021,11 +3156,11 @@ def main():
             source=f'cvxpygen_tpu_torch/csrc/{src}',
             replaces=f'cvxpygen_tpu/ops/ldl_kernel.py:{line}',
             launches=ldl_launches[name], **ldl_numbers[name]))
-    for name, src, line in (('ldl_factor_inverse', 'ldl_factor_inverse.cu',
-                             441), ('ldl_kinv', 'ldl_kinv.cu', 334)):
+    # K9 and K10: one fused kernel behind two wrappers
+    for name, line in (('ldl_factor_inverse', 441), ('ldl_kinv', 334)):
         kernels.append(dict(
             name=name, route='cuda',
-            source=f'cvxpygen_tpu_torch/csrc/{src}',
+            source='cvxpygen_tpu_torch/csrc/ldl_kinv.cu',
             replaces=f'cvxpygen_tpu/ops/ldl_kernel.py:{line}',
             launches=fused_launches[name], **fused_numbers[name]))
     kernels.append(dict(

@@ -1,14 +1,19 @@
-// Kernel K10: the explicit inverse of the pivot-regularized quasidefinite
-// KKT matrix, factor and inverse in one launch, batch-major.
+// The fused factor + explicit inverse of kernels K9 and K10: the inverse of
+// the pivot-regularized quasidefinite KKT matrix in one launch.
 //
-// Replaces cvxpygen_tpu/ops/ldl_kernel.py::_factor_inverse_bm_kernel
-// (wrapper ldl_kinv_pallas), the Pallas TPU kernel that the conic IPM's
-// 'ldl' KKT mode runs once per iteration under CPG_LDL_BM_FUSED=1, and
-// computes the same function: K (B, N, N) -> Kinv (B, N, N) of the
-// pivot-regularized K, padded internally to Np = nbp * p with an identity
-// tail.  Its plain torch version is ldl_kinv_plain in
-// cvxpygen_tpu_torch/ops/ldl_kernel.py, which also builds and binds this
-// file (nvcc for sm_90a, ctypes).
+// Replaces two Pallas TPU kernels of cvxpygen_tpu/ops/ldl_kernel.py that
+// compute the same function, K (B, N, N) -> Kinv (B, N, N) of the
+// pivot-regularized K padded internally to Np = nbp * p with an identity
+// tail: _factor_inverse_kernel (K9, wrapper ldl_factor_inverse_pallas, the
+// conic IPM's 'ldl' KKT mode under CPG_LDL_FUSED=1 and both levels of its
+// two-level route) and _factor_inverse_bm_kernel (K10, wrapper
+// ldl_kinv_pallas, under CPG_LDL_BM_FUSED=1).  The two differ on the TPU
+// only in layout: K9 interleaves instances on the vector lanes, K10 keeps
+// them batch-major.  Their wrappers, ldl_factor_inverse_kernel and
+// ldl_kinv_kernel in cvxpygen_tpu_torch/ops/ldl_kernel.py, both launch this
+// kernel (plain versions ldl_factor_inverse_plain and ldl_kinv_plain there;
+// the module builds and binds this file, nvcc for sm_90a, ctypes, and
+// mirrors its layout rule in kinv_layout).
 //
 // What bounds it.  At the entropy family's shape (N = 161, Np = 176,
 // B = 1024, float32) the function must read K's lower triangle (53 MB) and
@@ -16,170 +21,180 @@
 // instance (N^3 / 3 for the factor, 2 N^3 / 3 for the inverse; 4.3 GFLOP
 // in all, 0.064 ms at the FP32 peak).  So operations bound it, narrowly.
 //
-// Design (a first version that is right before it is fast): one block of
-// 256 threads per instance.  The factor is kernel K6's, shared through
-// csrc/ldl.cuh::ldl_factor_block: the working matrix stays resident in
-// shared memory (124 KB at Np = 176), or in a device scratch the wrapper
-// allocates when it does not fit beside the inverse's buffers.  The panel
-// inverses and pivots stay in shared memory, and L21 stays transposed in
-// the working matrix's upper triangle, so nothing of the factor goes
-// through device memory: that is what fusing saves over K6 + K7 (about
-// 0.1 ms of bytes at B = 1024).  The inverse is then built in strips of W
-// columns with kernel K7's forward, diagonal and backward panel sweeps on
-// the identity, each strip in shared memory beside the factor and written
-// to Kinv when done.  The whole Np x Np inverse does not fit beside L, so
-// W is what fits (at most 128 columns; 120 at Np = 176), evened out over
-// the strips: two of 81 columns at N = 161.  The forward sweep of a strip
-// starts at the panel of its first column (the rows above it are zero).
-// K6's barriers per panel step stay.
-#include "ldl.cuh"
+// Design.  One block of 256 threads per instance runs kernel K6's
+// factorization and then kernel K7's sweeps, from their shared device code
+// (csrc/ldl_tiles.cuh) and in their order, so Kinv is bitwise that of K7 on
+// K6's factor, both triangles.
+// - Resident layout (Np <= 272; two blocks per SM at Np = 176).  The block
+//   factors the lower triangle's 16 x 16 tiles in shared memory as K6
+//   does, but keeps the panel inverses and pivots beside them instead of
+//   writing L, d and Linv to device memory.  It then builds its instance's
+//   column tiles of Kinv one after the other, K7's tile of W = 32 columns
+//   (16 for N <= 16) in shared memory beside the factor: the forward sweep
+//   from the tile's first panel, the diagonal, the backward sweep back to
+//   it, the lower triangle computed and the upper one mirrored, L21 read
+//   straight from the tiles.  L never leaves the SM: what fusing saves is
+//   K6's store of L (127 MB at B = 1024) and K7's staging of it through L2.
+// - Scratch layout (larger Np).  The tiles, the panel inverses, the
+//   pivots and R, the tile's right-hand block, go to a device scratch
+//   (K6's path above Np = 320) and the sweeps stage L from there by
+//   cp.async, as K7 does.  Every N has a launch.
+#include "ldl_tiles.cuh"
 
 namespace {
 
 using namespace cvxldl;
 
-constexpr int kMaxStrip = 128;
+// the layouts: 0 the factor resident in shared memory; 1 the factor and R
+// in the device scratch
+constexpr int kResident = 0;
+constexpr int kScratch = 1;
 
-// K10 keeps each panel's inverse and pivots in shared memory; L21 needs no
-// copy, ldl_factor_block leaves it transposed in the working matrix.
-struct SharedOut {
-  float* V;   // (Np, p) panel inverses
-  float* dd;  // (Np) pivots
-  int p;
-  __device__ void panel(int o, const PanelBufs& pb) {
-    for (int e = threadIdx.x; e < p * p; e += kThreads)
-      V[(size_t)o * p + e] = pb.linv[e];
-    if (threadIdx.x < p) dd[o + threadIdx.x] = pb.d[threadIdx.x];
-  }
-  __device__ void l21(int, int, float) {}
-};
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
-__global__ void __launch_bounds__(kThreads)
-    ldl_kinv_kernel(const float* __restrict__ K, int N, int Np, int p,
-                    const float* __restrict__ signs, float delta, int W,
-                    float* __restrict__ Kinv, float* scratch) {
+// Dynamic shared memory of one block in `layout` (the static PanelOut pair
+// comes on top): resident, the tiles, R, the panel inverses, the pivots
+// and Z; else K7's block with R in the scratch.
+size_t smem_bytes(int Np, int p, int W, int layout) {
+  if (layout == kScratch) return sweep_smem_bytes(Np, p, W, false);
+  return 4 * ((size_t)n_tiles(Np / p) * kTileWords + (size_t)Np * (W + 4) +
+              round4(Np * p) + round4(Np) + (size_t)kMaxPanel * W);
+}
+
+// Floats of one instance's device scratch: the tiles, the panel inverses,
+// the pivots and R, each part a multiple of 4.
+__host__ __device__ inline long long scratch_words(int Np, int p, int W,
+                                                   int layout) {
+  if (layout == kResident) return 0;
+  return (long long)n_tiles(Np / p) * kTileWords + round4(Np * p) +
+         round4(Np) + (long long)Np * (W + 4);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads, 2)
+    kinv_resident_kernel(const float* __restrict__ K, int N, int Np, int p,
+                         const float* __restrict__ signs, float delta,
+                         float* __restrict__ Kinv) {
+  constexpr int RS = W + 4;
   extern __shared__ __align__(16) float smem[];
-  __shared__ PanelBufs pb;
+  __shared__ __align__(16) PanelOut po[2];
   const size_t b = blockIdx.x;
-  const int tid = threadIdx.x;
-  float* A = scratch ? scratch + b * (size_t)Np * Np : smem;
-  float* V = scratch ? smem : smem + (size_t)Np * Np;
-  float* dd = V + Np * p;
-  float* R = dd + Np;      // (Np, W): the strip
-  float* Z = R + Np * W;   // (p, W): one panel's rows of it
-  load_lower_padded(A, K + b * (size_t)N * N, N, Np);
-  SharedOut out{V, dd, p};
-  ldl_factor_block(A, Np, p, signs, delta, pb, out);
-
-  const int nbp = Np / p;
+  // the tiles, R (Np x RS), the panel inverses (Np x p), the pivots, Z
+  // (16 x W), each part from a 16-byte line
+  float* A = smem;
+  float* R = A + (size_t)n_tiles(Np / p) * kTileWords;
+  float* V = R + (size_t)Np * RS;
+  float* dd = V + round4(Np * p);
+  float* sZ = dd + round4(Np);
+  factor_tiles(A, K + b * (size_t)N * N, N, Np, p, signs, delta, po, V, dd);
+  const ResidentL acc{A, V, dd};
   float* Kb = Kinv + b * (size_t)N * N;
   for (int j0 = 0; j0 < N; j0 += W) {
-    const int w = min(W, N - j0);
-    for (int e = tid; e < Np * W; e += kThreads) {
-      const int r = e / W, c = e - r * W;
-      R[e] = (c < w && r == j0 + c) ? 1.0f : 0.0f;
-    }
-    // forward: L Z = I.  Z_k = Linv_k R_k; R[below] -= L21 Z_k, with
-    // L[o + p + r][o + j] = A[(o + j) * Np + o + p + r]
-    for (int k = j0 / p; k < nbp; ++k) {
-      const int o = k * p;
-      __syncthreads();
-      for (int e = tid; e < p * W; e += kThreads) {
-        const int i = e / W, c = e - i * W;
-        const float* v = V + (size_t)(o + i) * p;
-        float acc = 0.0f;
-        for (int j = 0; j < p; ++j) acc += v[j] * R[(o + j) * W + c];
-        Z[e] = acc;
-      }
-      __syncthreads();
-      for (int e = tid; e < p * W; e += kThreads) R[o * W + e] = Z[e];
-      const float* lt = A + (size_t)o * Np + o + p;
-      for (int e = tid; e < (Np - o - p) * W; e += kThreads) {
-        const int r = e / W, c = e - r * W;
-        float acc = 0.0f;
-        for (int j = 0; j < p; ++j)
-          acc += lt[(size_t)j * Np + r] * Z[j * W + c];
-        R[(o + p) * W + e] -= acc;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < Np * W; e += kThreads) R[e] /= dd[e / W];
-    // backward: L' X = W.  X_k = Linv_k' R_k; R[above] -= L[k rows, above]'
-    // X_k, with L[o + i][r] = A[r * Np + o + i] for r < o
-    for (int k = nbp - 1; k >= 0; --k) {
-      const int o = k * p;
-      __syncthreads();
-      for (int e = tid; e < p * W; e += kThreads) {
-        const int i = e / W, c = e - i * W;
-        float acc = 0.0f;
-        for (int j = 0; j < p; ++j)
-          acc += V[(size_t)(o + j) * p + i] * R[(o + j) * W + c];
-        Z[e] = acc;
-      }
-      __syncthreads();
-      for (int e = tid; e < p * W; e += kThreads) R[o * W + e] = Z[e];
-      for (int e = tid; e < o * W; e += kThreads) {
-        const int r = e / W, c = e - r * W;
-        const float* lr = A + (size_t)r * Np + o;
-        float acc = 0.0f;
-        for (int i = 0; i < p; ++i) acc += lr[i] * Z[i * W + c];
-        R[e] -= acc;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < N * W; e += kThreads) {
-      const int r = e / W, c = e - r * W;
-      if (c < w) Kb[(size_t)r * N + j0 + c] = R[e];
-    }
-    __syncthreads();
+    if (j0) __syncthreads();  // the last tile's R has been stored
+    inverse_tile<W>(acc, R, sZ, N, Np, p, j0, Kb);
   }
 }
 
-// The strip width for a working matrix kept in shared memory (`resident`)
-// or in a device scratch: at most kMaxStrip and what fits beside the panel
-// inverses and pivots, then evened out over the strips that N needs; 0 when
-// fewer than 8 columns fit.
-int strip_width(int N, int Np, int p, bool resident) {
-  const long long words = (long long)(kSmemLimit - sizeof(PanelBufs)) / 4 -
-                          (resident ? (long long)Np * Np : 0) -
-                          (long long)Np * p - Np;
-  long long W = words / (Np + p);
-  if (W > kMaxStrip) W = kMaxStrip;
-  if (W < 8) return 0;
-  const long long strips = (N + W - 1) / W;
-  return (int)((N + strips - 1) / strips);
+template <int W>
+__global__ void __launch_bounds__(kThreads, 2)
+    kinv_scratch_kernel(const float* __restrict__ K, int N, int Np, int p,
+                        const float* __restrict__ signs, float delta,
+                        float* scratch, float* __restrict__ Kinv) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(16) PanelOut po[2];
+  const size_t b = blockIdx.x;
+  // the instance's tiles, panel inverses, pivots and R; Z and the stages
+  // in shared memory
+  float* A = scratch + b * (size_t)scratch_words(Np, p, W, kScratch);
+  float* V = A + (size_t)n_tiles(Np / p) * kTileWords;
+  float* dd = V + round4(Np * p);
+  float* R = dd + round4(Np);
+  float* sZ = smem;
+  factor_tiles(A, K + b * (size_t)N * N, N, Np, p, signs, delta, po, V, dd);
+  // the factor's stores reach L2, where cp.async.cg reads them
+  __threadfence();
+  __syncthreads();
+  const StagedL<TiledL> acc{
+      TiledL{A, V, dd}, sZ + kMaxPanel * W, stage_words(Np, p),
+      Np > p ? chunk_len(Np, p) : 0};
+  float* Kb = Kinv + b * (size_t)N * N;
+  for (int j0 = 0; j0 < N; j0 += W) {
+    if (j0) __syncthreads();  // R stored, the stages read
+    inverse_tile<W>(acc, R, sZ, N, Np, p, j0, Kb);
+  }
 }
 
-size_t smem_bytes(int Np, int p, int W, bool resident) {
-  return 4 * ((resident ? (size_t)Np * Np : 0) + (size_t)Np * p + Np +
-              (size_t)(Np + p) * W);
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the carveout that lets two blocks share an SM
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+template <int W>
+cudaError_t launch(const float* K, int B, int N, int Np, int p,
+                   const float* signs, float delta, float* Kinv,
+                   float* scratch, int layout, cudaStream_t st) {
+  const size_t smem = smem_bytes(Np, p, W, layout);
+  cudaError_t err;
+  if (layout == kResident) {
+    err = allow_smem(kinv_resident_kernel<W>, smem);
+    if (err != cudaSuccess) return err;
+    kinv_resident_kernel<W>
+        <<<B, kThreads, smem, st>>>(K, N, Np, p, signs, delta, Kinv);
+  } else {
+    err = allow_smem(kinv_scratch_kernel<W>, smem);
+    if (err != cudaSuccess) return err;
+    kinv_scratch_kernel<W><<<B, kThreads, smem, st>>>(
+        K, N, Np, p, signs, delta, scratch, Kinv);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// 1 when the working matrix of an Np x Np factor fits in shared memory
-// beside the inverse's buffers; 0 when the caller must pass a device
-// scratch of B * Np * Np floats.
-extern "C" int ldl_kinv_resident(int N, int Np, int p) {
-  return strip_width(N, Np, p, true) > 0 ? 1 : 0;
+// Dynamic shared memory of one block at tile width `width` (16 or 32) in
+// `layout` (0: the factor resident; 1: the factor and R in the device
+// scratch), or 0 when the block's shared memory (with its static PanelOut
+// pair) exceeds the per-block limit.  ops/ldl_kernel.py::kinv_layout
+// mirrors it.
+extern "C" long long ldl_kinv_smem_bytes(int Np, int p, int width,
+                                         int layout) {
+  if (layout != kResident && layout != kScratch) return 0;
+  const size_t bytes = smem_bytes(Np, p, width, layout);
+  return bytes + 2 * sizeof(PanelOut) <= kSmemLimit ? (long long)bytes : 0;
 }
 
-// Launches kernel K10 on `stream`.  K (B, N, N); signs (Np,) +-1; Kinv
-// (B, N, N) out; `scratch` is null (the working matrix in shared memory) or
-// B * Np * Np floats.  Returns the CUDA error code (0 = success).
+// Floats of one instance's device scratch in `layout` (0 for layout 0).
+extern "C" long long ldl_kinv_scratch_words(int Np, int p, int width,
+                                            int layout) {
+  return scratch_words(Np, p, width, layout);
+}
+
+// Launches the fused kernel on `stream`: K (B, N, N); signs (Np,) +-1;
+// Kinv (B, N, N) out; tiles of `width` columns (16 or 32); `scratch` null in
+// layout 0, else B * ldl_kinv_scratch_words floats, 16-byte aligned.  The
+// panel is 16 or, with one panel, N.  Returns the CUDA error code (0 =
+// success).
 extern "C" int ldl_kinv_f32(const float* K, int B, int N, int Np, int p,
-                            const float* signs, float delta, float* Kinv,
-                            float* scratch, void* stream) {
-  if (!dims_ok(B, N, Np, p)) return (int)cudaErrorInvalidValue;
-  const bool resident = scratch == nullptr;
-  const int W = strip_width(N, Np, p, resident);
-  if (W == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(Np, p, W, resident);
-  cudaError_t err = cudaFuncSetAttribute(
-      ldl_kinv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ldl_kinv_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      K, N, Np, p, signs, delta, W, Kinv, scratch);
-  return (int)cudaGetLastError();
+                            const float* signs, float delta, int width,
+                            int layout, float* scratch, float* Kinv,
+                            void* stream) {
+  if (!dims_ok(B, N, Np, p) || (p != kMaxPanel && Np != p) ||
+      (width != 16 && width != 32) ||
+      ldl_kinv_smem_bytes(Np, p, width, layout) == 0 ||
+      (layout == kResident) != (scratch == nullptr) ||
+      (uintptr_t)scratch % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return width == 16
+             ? (int)launch<16>(K, B, N, Np, p, signs, delta, Kinv, scratch,
+                               layout, st)
+             : (int)launch<32>(K, B, N, Np, p, signs, delta, Kinv, scratch,
+                               layout, st);
 }

@@ -1,5 +1,5 @@
-"""Kernels K6, K7 and K8: the batched static-pivot blocked LDL^T of the conic
-IPM's 'ldl' KKT mode, written by hand for Hopper.
+"""Kernels K6-K10: the batched static-pivot blocked LDL^T of the conic IPM's
+'ldl' KKT mode, written by hand for Hopper.
 
 - K6, ``ldl_factor_kernel``: L, d and the panel inverses of a batch of
   quasidefinite KKT matrices.  Replaces the JAX package's Pallas TPU kernel
@@ -12,14 +12,24 @@ IPM's 'ldl' KKT mode, written by hand for Hopper.
   wrapper ``ldl_solve_pallas``), the IPM's route with
   ``IPMSettings(ldl_inverse=False)``.  CUDA source: csrc/ldl_solve.cu.
 - K9, ``ldl_factor_inverse_kernel``: factor and explicit inverse in one
-  launch with the instances interleaved, layout (Np, Np, B)
-  (``_factor_inverse_kernel``, wrapper ``ldl_factor_inverse_pallas``), the
-  IPM's route under ``CPG_LDL_FUSED=1``.  CUDA source:
-  csrc/ldl_factor_inverse.cu.
-- K10, ``ldl_kinv_kernel``: factor and explicit inverse in one launch,
-  batch-major (``_factor_inverse_bm_kernel``, wrapper ``ldl_kinv_pallas``),
-  the IPM's route under ``CPG_LDL_BM_FUSED=1``.  CUDA source:
-  csrc/ldl_kinv.cu.
+  launch (``_factor_inverse_kernel``, wrapper ``ldl_factor_inverse_pallas``),
+  the IPM's route under ``CPG_LDL_FUSED=1`` and both levels of its
+  two-level route.
+- K10, ``ldl_kinv_kernel``: the same function (``_factor_inverse_bm_kernel``,
+  wrapper ``ldl_kinv_pallas``), the IPM's route under
+  ``CPG_LDL_BM_FUSED=1``.
+
+K9 and K10 launch one fused kernel, csrc/ldl_kinv.cu, each through its own
+wrapper and launch count.  On the TPU the two differ in layout: K9
+interleaves instances on the vector lanes ((Np, Np, B), the batch on the
+fastest axis), because one instruction there covers 128 lanes and a single
+instance's narrow rows would leave most of them idle; K10 keeps them
+batch-major.  On the H100 every SIMT thread is already a lane of its own,
+so the interleaving buys nothing: it cost two transposes of K and Kinv and
+made eight instances share one block's shared memory, which then could not
+hold their trailing matrices.  The fused kernel gives one instance one
+block, as K6 and K7 do, and runs their device code (csrc/ldl_tiles.cuh) in
+their order, so its Kinv is bitwise that of K7 on K6's factor.
 
 The contracts are the reference wrappers': the factor is a dict with L
 (B, Np, Np), d (B, Np), Linv stored flat (B, nbp * p, p), panel, N and Np,
@@ -28,24 +38,28 @@ inverse returns (B, N, N) and the solve (B, N); K9 and K10 take K
 (B, N, N) and return the inverse (B, N, N) of the pivot-regularized K.
 Each wrapper runs its plain torch version (``ldl_factor_plain``,
 ``ldl_inverse_plain``, ``ldl_solve_plain``, ``ldl_factor_inverse_plain``,
-``ldl_kinv_plain``: the panel math of ops/ldl_batched.py) on CPU tensors,
-and on CUDA tensors launches its kernel (float32, built with nvcc at first
-use, bound with ctypes, one count per launch in ``.launches``) or raises:
-there is no fallback.
+``ldl_kinv_plain``: the panel math of ops/ldl_batched.py;
+``ldl_factor_inverse_plain`` in the reference K9's elimination order) on
+CPU tensors, and on CUDA tensors launches its kernel (float32, built with
+nvcc at first use, bound with ctypes, one count per launch in
+``.launches``) or raises: there is no fallback.
 
 What bounds them on the card (notes in the CUDA sources): bytes (K6: the
 lower triangle of K in, L out; K7: the lower triangle of L in, Kinv out;
-K8: the lower triangle of L in); K9 and K10 operations, narrowly (N^3
-FLOP against the lower triangle of K in, Kinv out).  No batch padding:
-every instance is independent in all five kernels, so no block size
-changes an answer.  K6 keeps an instance's lower triangle as 16 x 16
-tiles in shared memory up to Np = 320 (three blocks per SM at the entropy
-shape, Np = 176) and in a device scratch the wrapper allocates above that
+K8: the lower triangle of L in); the fused kernel operations, narrowly
+(N^3 FLOP against the lower triangle of K in, Kinv out).  No batch
+padding: every instance is independent, so no block size changes an
+answer.  K6 keeps an instance's lower triangle as 16 x 16 tiles in shared
+memory up to Np = 320 (three blocks per SM at the entropy shape, Np = 176)
+and in a device scratch the wrapper allocates above that
 (``factor_layout``).  K7 takes one instance and one tile of columns per
 thread block (``inverse_plan``), skips the exact zeros of L^-1 and computes
 the lower triangle only, writing the upper one as its transpose; its tile's
 right-hand block stays in shared memory where it fits (Np <= 1296) and in a
-device scratch the wrapper allocates above that.
+device scratch the wrapper allocates above that.  The fused kernel keeps
+the tiles, the panel inverses, the pivots and one column tile in shared
+memory up to Np = 272 (two blocks per SM at Np = 176), else in a device
+scratch from which its sweeps stage L as K7 does (``kinv_layout``).
 """
 from __future__ import annotations
 
@@ -61,11 +75,6 @@ _LIB_FACTOR = None
 _LIB_INVERSE = None
 _LIB_SOLVE = None
 _LIB_KINV = None
-_LIB_FI = None
-# K9's instances per thread block: at the entropy shape (Np=176), 8 gives
-# 128 blocks of 512 threads, one per SM (chip_smoke.py phase 12 times 8, 4
-# and 2)
-FI_GROUP = 8
 _SIGNS = {}             # (padded signs, device) -> their tensor
 # K7 (csrc/ldl_inverse.cu): its column-tile widths, the row stride of a
 # staged L21 block and the rows (columns) of L in one stage
@@ -83,6 +92,9 @@ _SM_SMEM = 233472
 _SM_BLOCK_RESERVE = 1024
 _K6_THREADS = 256
 _SM_THREADS = 2048
+# the fused kernel's blocks per SM by registers: __launch_bounds__(256, 2)
+# lets a thread take up to 128 of an SM's 65,536 (ptxas: 119-128)
+_KINV_REG_BLOCKS = 2
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +185,55 @@ def inverse_plan(N, width=None, panel: int = 16):
     return dict(p=p, Np=Np, width=width, tiles=tiles, resident=resident,
                 scratch_words=0 if resident else tiles * Np * (width + 4),
                 smem_bytes=smem)
+
+
+def _round4(n):
+    return -(-n // 4) * 4
+
+
+# the fused kernel's layouts (csrc/ldl_kinv.cu): the factor resident in
+# shared memory; the factor and the column tile's R in a device scratch
+KINV_LAYOUTS = ('resident', 'scratch')
+
+
+def kinv_smem_bytes(N, width, layout, panel: int = 16):
+    """Dynamic shared memory of one block of the fused kernel
+    (csrc/ldl_kinv.cu ``smem_bytes``) in ``layout`` (an index into
+    ``KINV_LAYOUTS``): resident, K6's tiles, R (Np, width + 4), the panel
+    inverses, the pivots (each part rounded to 16-byte lines) and Z
+    (16, width); otherwise K7's block with R in the scratch
+    (``inverse_smem_bytes``)."""
+    if layout:
+        return inverse_smem_bytes(N, width, False, panel)
+    p, Np = _dims(N, panel)
+    return 4 * (factor_layout(N, panel)['tile_words'] + Np * (width + 4)
+                + _round4(Np * p) + _round4(Np) + 16 * width)
+
+
+def kinv_layout(N, panel: int = 16):
+    """The fused kernel's launch for K (B, N, N): the panel p, Np, K7's
+    column-tile width (``inverse_plan``'s, so that Kinv is bitwise K7's),
+    the column tiles per instance, the layout (``KINV_LAYOUTS``: resident
+    where its block fits the per-block limit beside the static panel
+    buffers, else the scratch), its dynamic shared memory, the device
+    scratch per instance (``scratch_words`` floats: the tiles, panel
+    inverses, pivots and R) and the thread blocks an SM holds at once (by
+    shared memory, and at most two by registers).  Every N has a
+    launch."""
+    plan = inverse_plan(N, None, panel)
+    p, Np, width = plan['p'], plan['Np'], plan['width']
+    layout = int(kinv_smem_bytes(N, width, 0, panel) + _K6_STATIC
+                 > _SMEM_LIMIT)
+    smem = kinv_smem_bytes(N, width, layout, panel)
+    scratch = 0
+    if layout:
+        scratch = (factor_layout(N, panel)['tile_words'] + _round4(Np * p)
+                   + _round4(Np) + Np * (width + 4))
+    per_block = smem + _K6_STATIC + _SM_BLOCK_RESERVE
+    return dict(p=p, Np=Np, width=width, tiles=plan['tiles'],
+                layout=KINV_LAYOUTS[layout], layout_id=layout,
+                smem_bytes=smem, scratch_words=scratch,
+                blocks_per_sm=min(_KINV_REG_BLOCKS, _SM_SMEM // per_block))
 
 
 def ldl_factor_inverse_plain(K, signs, dyn_delta, panel: int = 16):
@@ -286,19 +347,14 @@ def _bind_solve(lib):
 
 
 def _bind_kinv(lib):
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
     lib.ldl_kinv_f32.restype = I
-    lib.ldl_kinv_f32.argtypes = [P, I, I, I, I, P, F, P, P, P]
-    lib.ldl_kinv_resident.restype = I
-    lib.ldl_kinv_resident.argtypes = [I, I, I]
-
-
-def _bind_fi(lib):
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ldl_factor_inverse_f32.restype = I
-    lib.ldl_factor_inverse_f32.argtypes = [P, I, I, I, I, P, F, P, P, I, P]
-    lib.ldl_fi_group.restype = I
-    lib.ldl_fi_group.argtypes = [I, I, I, I]
+    lib.ldl_kinv_f32.argtypes = [P, I, I, I, I, P, F, I, I, P, P, P]
+    lib.ldl_kinv_smem_bytes.restype = LL
+    lib.ldl_kinv_smem_bytes.argtypes = [I, I, I, I]
+    lib.ldl_kinv_scratch_words.restype = LL
+    lib.ldl_kinv_scratch_words.argtypes = [I, I, I, I]
 
 
 def build_factor_kernel(verbose=False):
@@ -327,17 +383,10 @@ def build_solve_kernel(verbose=False):
 
 
 def build_kinv_kernel(verbose=False):
-    """Compile csrc/ldl_kinv.cu (K10) for sm_90a and load it."""
+    """Compile csrc/ldl_kinv.cu (the fused kernel of K9 and K10) for sm_90a
+    and load it."""
     global _LIB_KINV
     _LIB_KINV, secs = load_library('ldl_kinv', _bind_kinv, verbose=verbose)
-    return secs
-
-
-def build_factor_inverse_kernel(verbose=False):
-    """Compile csrc/ldl_factor_inverse.cu (K9) for sm_90a and load it."""
-    global _LIB_FI
-    _LIB_FI, secs = load_library('ldl_factor_inverse', _bind_fi,
-                                 verbose=verbose)
     return secs
 
 
@@ -477,32 +526,42 @@ ldl_solve_kernel.launches = 0
 
 
 
-def ldl_kinv_kernel(K, signs, dyn_delta, panel: int = 16):
-    """Inverse (B, N, N) of the pivot-regularized K (B, N, N), factor and
-    inverse in one launch, batch-major (K10; the contract of
-    ``ldl_kinv_pallas``).  CPU tensors run ``ldl_kinv_plain``; CUDA
-    tensors launch the kernel (float32) or raise."""
-    if K.device.type == 'cpu':
-        return ldl_kinv_plain(K, signs, dyn_delta, panel)
-    dev = _cuda_device(K, 'LDL factor+inverse (batch-major)')
+def _kinv_launch(K, signs, dyn_delta, panel: int = 16):
+    """One launch of the fused kernel on the CUDA tensor K by
+    ``kinv_layout``'s rule.  Returns Kinv (B, N, N)."""
+    dev = _cuda_device(K, 'LDL factor+inverse')
     B, N, _ = K.shape
-    p, Np = _dims(N, panel)
+    lay = kinv_layout(N, panel)
+    p, Np = lay['p'], lay['Np']
     K = checked(K, 'K', (B, N, N), dev)
     sg = _signs_on(signs, N, Np, dev)
     build_kinv_kernel()
     Kinv = torch.empty((B, N, N), dtype=torch.float32, device=dev)
-    # the working matrix stays in shared memory beside the inverse's strip
-    # when it fits, else in a device scratch (same kernel)
+    # the factor stays in shared memory when it fits, else in a device
+    # scratch (same kernel, another layout)
     scratch = None
-    if not _LIB_KINV.ldl_kinv_resident(N, Np, p):
-        scratch = torch.empty((B, Np, Np), dtype=torch.float32, device=dev)
+    if lay['scratch_words']:
+        scratch = torch.empty((B, lay['scratch_words']), dtype=torch.float32,
+                              device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _LIB_KINV.ldl_kinv_f32(
             K.data_ptr(), B, N, Np, p, sg.data_ptr(), float(dyn_delta),
-            Kinv.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            lay['width'], lay['layout_id'],
+            None if scratch is None else scratch.data_ptr(), Kinv.data_ptr(),
             stream)
     _raise_on(err, 'ldl_kinv')
+    return Kinv
+
+
+def ldl_kinv_kernel(K, signs, dyn_delta, panel: int = 16):
+    """Inverse (B, N, N) of the pivot-regularized K (B, N, N), factor and
+    inverse in one launch of the fused kernel (K10; the contract of
+    ``ldl_kinv_pallas``).  CPU tensors run ``ldl_kinv_plain``; CUDA
+    tensors launch the kernel (float32) or raise."""
+    if K.device.type == 'cpu':
+        return ldl_kinv_plain(K, signs, dyn_delta, panel)
+    Kinv = _kinv_launch(K, signs, dyn_delta, panel)
     ldl_kinv_kernel.launches += 1
     return Kinv
 
@@ -510,40 +569,18 @@ def ldl_kinv_kernel(K, signs, dyn_delta, panel: int = 16):
 ldl_kinv_kernel.launches = 0
 
 
-def ldl_factor_inverse_kernel(K, signs, dyn_delta, panel: int = 16,
-                              group: int = FI_GROUP):
+def ldl_factor_inverse_kernel(K, signs, dyn_delta, panel: int = 16):
     """Inverse (B, N, N) of the pivot-regularized K (B, N, N), factor and
-    inverse in one launch with the instances interleaved (K9; the contract
-    of ``ldl_factor_inverse_pallas``).  As the reference's wrapper does,
-    the padded K is transposed to (Np, Np, B) for the kernel (which
-    overwrites that copy) and the inverse transposed back.  ``group``
-    caps the instances that one thread block interleaves (1, 2, 4 or 8;
-    no answer depends on it).  CPU tensors run
+    inverse in one launch of the fused kernel (K9; the contract of
+    ``ldl_factor_inverse_pallas``, whose lane interleaving has no use on
+    the card: see the module's notes).  CPU tensors run
     ``ldl_factor_inverse_plain``; CUDA tensors launch the kernel (float32)
     or raise."""
     if K.device.type == 'cpu':
         return ldl_factor_inverse_plain(K, signs, dyn_delta, panel)
-    dev = _cuda_device(K, 'LDL factor+inverse (interleaved)')
-    B, N, _ = K.shape
-    p, Np = _dims(N, panel)
-    K = checked(K, 'K', (B, N, N), dev)
-    sg = _signs_on(signs, N, Np, dev)
-    build_factor_inverse_kernel()
-    if not _LIB_FI.ldl_fi_group(N, Np, p, int(group)):
-        raise ValueError(f'ldl_factor_inverse kernel: Np={Np} does not fit '
-                         f'shared memory, or group={group} is not 1, 2, 4 '
-                         'or 8')
-    T = pad_identity(K, Np).permute(1, 2, 0).contiguous()
-    V = torch.empty((Np, p, B), dtype=torch.float32, device=dev)
-    KinvT = torch.empty((N, N, B), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = _LIB_FI.ldl_factor_inverse_f32(
-            T.data_ptr(), B, N, Np, p, sg.data_ptr(), float(dyn_delta),
-            V.data_ptr(), KinvT.data_ptr(), int(group), stream)
-    _raise_on(err, 'ldl_factor_inverse')
+    Kinv = _kinv_launch(K, signs, dyn_delta, panel)
     ldl_factor_inverse_kernel.launches += 1
-    return KinvT.permute(2, 0, 1).contiguous()
+    return Kinv
 
 
 ldl_factor_inverse_kernel.launches = 0

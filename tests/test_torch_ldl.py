@@ -287,6 +287,34 @@ def test_factor_kernel_matches_plain_on_card(N):
         assert float(((a - r).abs().amax(dim=1) / scale).max()) <= 1e-4, key
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('N', [10, 40])
+def test_factor_kernel_rounds_panel_steps_like_plain_on_card(N):
+    """On a card, K6 on pairs (a, b) with a + b small, the pattern of the
+    ADP family's Schur complement: a panel step's (d_j c_r) c_c is rounded
+    before it is subtracted, as the plain version rounds it, so the pivot
+    a - b^2 / a keeps the plain version's bits (an fmaf would keep c_r's
+    rounding error).  One panel at N=10; at N=40 the pairs fall inside
+    each panel."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the card: chip_smoke.py phase 12)')
+    rng = np.random.default_rng(N)
+    B = 256
+    K = np.zeros((B, N, N))
+    for i in range(0, N - 1, 4):
+        a = rng.uniform(1e4, 1e5, B)
+        b = -(a - rng.uniform(0.01, 2.0, B))
+        K[:, i, i] = K[:, i + 1, i + 1] = a
+        K[:, i, i + 1] = K[:, i + 1, i] = b
+    idx = np.arange(N)
+    K[:, idx, idx] = np.where(K[:, idx, idx] == 0, 6.0, K[:, idx, idx])
+    Kc = torch.tensor(K, dtype=torch.float32, device='cuda')
+    signs = np.ones(N)
+    fac = ldl_kernel.ldl_factor_kernel(Kc, signs, 1e-4)
+    ref = ldl_kernel.ldl_factor_plain(Kc, signs, 1e-4)
+    assert torch.equal(fac['d'], ref['d'])
+
+
 # ---------------------------------------------------------------------------
 # kernel K7's plan and schedule (csrc/ldl_inverse.cu)
 # ---------------------------------------------------------------------------
