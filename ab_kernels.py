@@ -58,9 +58,28 @@ KERNEL is one of:
   of 5 launches after one; x, z, y, the residuals and the flags are kept
   under build/ab_k5/ and compared the same way; then one solve_batch of
   the MPC H=30 batch through the checkout's engine, its mean iterations.
+- k11: K11 (csrc/banded_iterate.cu) on charging T=1440, B=256 (the
+  checkout's chip_smoke.py phase 13 set-up: its batch, settings and
+  shared engine arguments), kkt_refine 0 and 1: from the start state, two
+  calls of one check interval (50 iterations) each, whose x, z and y are
+  kept under build/ab_k11/ and compared the same way; then three runs of
+  3 launches on a running state after one.
+- k11state: this design of K11 only (its device scratch), on k11's set-up
+  at two instances per block and B = 2, 128 and 256 (kkt_refine 0): three
+  runs of 3 launches, each beside a copy of csrc/banded_iterate.cu built
+  under build/ab_k11state/ without the iterations' reads and writes of z,
+  y, l and u (K11_STATE_TRAFFIC; its results are not the function's), and
+  the difference per iteration, which is what that traffic costs.
+- k8: K8 (csrc/ldl_solve.cu) on K6's factor of k6's seeded K at the
+  entropy shape (B=1024, N=161: the resident layout) and at its n=64 twin
+  (B=64, N=321: the streamed layout), one seeded right-hand side each:
+  three runs of 20 launches after three; x is kept under build/ab_k8/ and
+  compared the same way; then the entropy batch (as for k7, seeds 5, 6 and
+  7) through K6 + K8 (ldl_inverse=False): solved, mean and largest
+  iterations, parity.
 
 Builds that checkout's kernel, times it by CUDA events and prints one line
-per mode.  Needs a CUDA device.  Delete build/ab_k4 ... build/ab_k10
+per mode.  Needs a CUDA device.  Delete build/ab_k4 ... build/ab_k11
 before a new A/B."""
 import os
 import sys
@@ -149,11 +168,12 @@ def time_k7(label, cs):
     entropy_solves('K7', label, cs)
 
 
-def entropy_solves(tag, label, cs):
+def entropy_solves(tag, label, cs, **over):
     """The entropy batch (the checkout's chip_smoke.py set-up, n=32,
     B=1024) solved with c drawn from default_rng(5), (6) and (7) through the
-    route the environment picks: for each seed, the instances solved, the
-    mean and largest iterations and the parity against logsumexp(c)."""
+    route the environment and the settings ``over`` pick: for each seed,
+    the instances solved, the mean and largest iterations and the parity
+    against logsumexp(c)."""
     import cvxpygen_tpu_torch as ct
     from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
     from cvxpygen_tpu_torch.runtime.solver import CompiledConicSolver
@@ -163,7 +183,7 @@ def entropy_solves(tag, label, cs):
         size=(cs.B_ENTROPY, cs.ENTROPY_N)) for seed in (5, 6, 7)}
     c.value = cvs[5][0]
     fam = canonicalize(prob)
-    st = IPMSettings.for_dtype(torch.float32, **cs.ENTROPY_SETTINGS)
+    st = IPMSettings.for_dtype(torch.float32, **cs.ENTROPY_SETTINGS, **over)
     solver = CompiledConicSolver(fam, settings=st, dtype=torch.float32,
                                  device='cuda')
     for seed, cv in cvs.items():
@@ -233,6 +253,180 @@ def time_fused(mode, label, cs):
     print(f'# K9 {label}: ADP two-level under {var}=1: solved '
           f'{int((out["status"] == 1).sum())} of {cs.B_ADP}, mean iters '
           f'{float(iters.mean()):.4f} (max {int(iters.max())})', flush=True)
+
+
+def time_k8(label, cs):
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    lk.build_factor_kernel()
+    lk.build_solve_kernel()
+    kept = []
+    for B, N, nb in ((1024, 161, 64), (64, 321, 128)):
+        Kc, signs = entropy_kkt(B, N, nb)
+        fac = lk.ldl_factor_kernel(Kc, signs, 1e-4)
+        g = torch.Generator(device='cuda').manual_seed(0)
+        b = torch.randn((B, N), generator=g, device='cuda')
+        for _ in range(3):
+            x = lk.ldl_solve_kernel(fac, b)
+        torch.cuda.synchronize()
+        means = [cuda_ms(lambda: lk.ldl_solve_kernel(fac, b), 20)[0]
+                 for _ in range(3)]
+        kept.append(x)
+        layout = (lk.solve_plan(N)['layout'] if hasattr(lk, 'solve_plan')
+                  else 'one layout')
+        print(f'# K8 {label}: ' + ' '.join(f'{m:.4f}' for m in means)
+              + f' ms per launch (B={B}, N={N}, {layout}); max |x| '
+              f'{float(x.abs().max()):.6e}', flush=True)
+    others = keep_and_compare('ab_k8', label, kept)
+    print(f'# K8 {label}: max |x - x of| ' + others, flush=True)
+    entropy_solves('K8', label + ' through K6 + K8', cs, ldl_inverse=False)
+
+
+def k11_inputs(cs):
+    """The checkout's chip_smoke.py phase 13 set-up of K11 on charging
+    T=1440, B=256: its kernel module, the shared arguments (fac, meta, B0,
+    B1, D_M, L_M, rho), q and the rho-scaled l and u, the rho-scaled start
+    state (x, z, y), and the iteration keywords."""
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.ops import banded_shared_kernel as k11
+    from cvxpygen_tpu_torch.runtime.solver import CompiledBandedQPSolver
+    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+    k11.build_iterate_kernel()
+    prob = cs.charging_problem(ct)
+    fam = canonicalize(prob)
+    st = ADMMSettings(**cs.CHARGING_SETTINGS)
+    solver = CompiledBandedQPSolver(fam, settings=st, device='cuda')
+    theta = cs.charging_batch(fam, prob, cs.B_CHARGING)
+    (fac, meta, B0, B1, _, _, D_M, L_M, _, _, _, rho, _, q, l, u, x, z,
+     y) = cs.banded_args(solver, theta, st)
+    rho3 = rho[:, :, None]
+    kw = dict(sigma=st.sigma, alpha=st.alpha,
+              check_interval=st.check_interval)
+    return (k11, (fac, meta, B0, B1, D_M, L_M, rho), q, l * rho3, u * rho3,
+            (x, (z * rho3).contiguous(), y), kw)
+
+
+def time_k11(label, cs):
+    k11, shared, q, ls, us, start, kw = k11_inputs(cs)
+    nb, s, B = start[0].shape
+    kept = []
+    for refine in (0, 1):
+        def call(xs, zs, ys):
+            return k11.banded_iterate(*shared, q, ls, us, xs, zs, ys,
+                                      kkt_refine=refine, **kw)
+
+        xs, zs, ys = (t.clone() for t in start)
+        for _ in range(2):
+            call(xs, zs, ys)
+        kept += [xs, zs, ys]
+        xt, zt, yt = (t.clone() for t in start)
+        call(xt, zt, yt)
+        means = [cuda_ms(lambda: call(xt, zt, yt), 3)[0] for _ in range(3)]
+        group = (k11.iterate_launch_plan(nb, s, B, refine)[0]
+                 if hasattr(k11, 'iterate_launch_plan') else 1)
+        print(f'# K11 {label}, kkt_refine={refine}: '
+              + ' '.join(f'{m:.4f}' for m in means)
+              + f' ms per launch (nb={nb}, s={s}, B={B}, '
+              f'{kw["check_interval"]} iterations, group {group}); max |x| '
+              f'{float(xs.abs().max()):.6e}', flush=True)
+    others = keep_and_compare('ab_k11', label, kept)
+    print(f'# K11 {label}: max |x, z, y - those of| ' + others, flush=True)
+
+
+# csrc/banded_iterate.cu's reads and writes of z, y, l and u in its device
+# scratch, each iteration's, and what k11state puts in their place: values
+# made in registers, and a store that never happens but keeps every
+# instance's update alive
+K11_STATE_TRAFFIC = (
+    ("""        float zv[G], yv[G];
+        ld_vec<G>(zr + (size_t)r * nb * G, zv);
+        ld_vec<G>(yr + (size_t)r * nb * G, yv);""",
+     """        float zv[G], yv[G];
+#pragma unroll
+        for (int u = 0; u < G; ++u) {
+          zv[u] = 1e-3f * r;
+          yv[u] = 1e-3f * u;
+        }"""),
+    ("""      ld_vec<G>(st.z + (size_t)o * G, zv[k]);
+      ld_vec<G>(st.y + (size_t)o * G, yv[k]);
+      ld_vec<G>(st.l + (size_t)o * G, lo[k]);
+      ld_vec<G>(st.u + (size_t)o * G, up[k]);""",
+     """#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        zv[k][u] = 1e-3f * g;
+        yv[k][u] = 0.f;
+        lo[k][u] = -1.f;
+        up[k][u] = 1.f;
+      }"""),
+    ("""      st_vec<G>(st.z + (size_t)o * G, zv[k]);
+      st_vec<G>(st.y + (size_t)o * G, yv[k]);""",
+     """      float t = 0.f;
+#pragma unroll
+      for (int u = 0; u < G; ++u) t += zv[k][u] + yv[k][u];
+      if (t == 12345.f) st.z[(size_t)o * G] = t;"""))
+
+
+def time_k11_state(label, cs):
+    """K11 beside a copy of it built without the iterations' z, y, l, u
+    traffic (K11_STATE_TRAFFIC), at two instances per block and B = 2, 128
+    and 256; the difference per iteration is what that traffic costs."""
+    import ctypes
+    import subprocess
+    from cvxpygen_tpu_torch.ops import build
+    k11, shared, q, ls, us, start, kw = k11_inputs(cs)
+    with open(os.path.join(build.CSRC, 'banded_iterate.cu')) as f:
+        src = f.read()
+    for old, new in K11_STATE_TRAFFIC:
+        if src.count(old) != 1:
+            sys.exit('k11state: the kernel source no longer has the state '
+                     'traffic it replaces')
+        src = src.replace(old, new)
+    out = os.path.join(os.getcwd(), 'build', 'ab_k11state')
+    os.makedirs(out, exist_ok=True)
+    cu, so = (os.path.join(out, f'{label}.{e}') for e in ('cu', 'so'))
+    with open(cu, 'w') as f:
+        f.write(src)
+    subprocess.run([build._nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
+                    '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
+                    '-I', build.CSRC, '-o', so, cu], check=True)
+    variant = ctypes.CDLL(so)
+    k11._bind_iterate(variant)
+    libs = {'kernel': build._LIBS['banded_iterate'], 'no state': variant}
+    nb, s, _ = start[0].shape
+    r_max = ls.shape[1]
+    n_it = kw['check_interval']
+    for Bc in (2, 128, 256):
+        sub = [t[..., :Bc].contiguous() for t in (q, ls, us)]
+        st0 = [t[..., :Bc].contiguous() for t in start]
+        ms = {}
+        for _ in range(3):
+            for name, lib in libs.items():
+                build._LIBS['banded_iterate'] = lib
+                xs, zs, ys = (t.clone() for t in st0)
+
+                def call():
+                    return k11.banded_iterate(*shared, *sub, xs, zs, ys,
+                                              kkt_refine=0, group=2, **kw)
+
+                call()
+                ms.setdefault(name, []).append(cuda_ms(call, 3)[0])
+        build._LIBS['banded_iterate'] = libs['kernel']
+        per_it = [(a - b) / n_it for a, b in zip(ms['kernel'],
+                                                  ms['no state'])]
+        model = 4.0 * Bc * 8 * nb * r_max
+        rates = ('n/a' if min(per_it) <= 0 else
+                 f'{model / max(per_it) / 1e6:.0f}-'
+                 f'{model / min(per_it) / 1e6:.0f}')
+        print(f'# K11 state {label}, B={Bc}, 2 per block, {n_it} '
+              'iterations: kernel ' + ' '.join(f'{m:.4f}' for m in
+                                               ms['kernel'])
+              + ' ms, without the state traffic '
+              + ' '.join(f'{m:.4f}' for m in ms['no state'])
+              + ' ms; difference per iteration '
+              + ' '.join(f'{1e3 * d:.2f}' for d in per_it)
+              + f' us; the design model\'s state bytes per iteration '
+              f'{model / 1e6:.2f} MB (not a reading), so {rates} GB/s if '
+              'the difference were all moving them', flush=True)
 
 
 def time_k5(label, cs):
@@ -399,6 +593,12 @@ def main():
         time_fused(kernel, label, cs)
     elif kernel == 'k5':
         time_k5(label, cs)
+    elif kernel == 'k8':
+        time_k8(label, cs)
+    elif kernel == 'k11':
+        time_k11(label, cs)
+    elif kernel == 'k11state':
+        time_k11_state(label, cs)
     elif kernel == 'k4':
         time_k4(label, cs)
     elif kernel == 'k3':
@@ -409,7 +609,7 @@ def main():
         time_k1(label, cs)
     else:
         sys.exit(f'unknown kernel {kernel!r}: k1, k2, k3, k4, k5, k6, k7, '
-                 'k9 or k10')
+                 'k8, k9, k10, k11 or k11state')
 
 
 if __name__ == '__main__':

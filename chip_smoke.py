@@ -110,8 +110,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    last; Kinv and the x of a random b from K6's factor
    within twice their plain versions' distance from the float64
    application of that factor, both per instance by max(1, |v|_inf) and
-   by the median entry's relative error; the same at n=64 (N=321,
-   Np=336, B=64: K6's device-scratch path), K6's storage rule
+   by the median entry's relative error; K8 in each of its layouts that
+   fits (ops/ldl_kernel.py::solve_plan: resident at p = 16 up to Np =
+   320, streamed always) held the same way and bitwise equal on a second
+   call; the same at n=64 (N=321, Np=336, B=64: K6's device-scratch path,
+   K8's streamed layout); K8 in each layout within LDL_TOL of its plain
+   version on a well-conditioned K at N=161 and N=321; K6's storage rule
    (ops/ldl_kernel.py::factor_layout) held to the library's; K7 at
    B=70000 (one launch, N=7); K7 above a stage's whole block of L, at
    N=801 (L applied in chunks) and N=1601 (R in the device scratch), on a
@@ -119,14 +123,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    (ops/ldl_kernel.py::inverse_plan) and its time at each column-tile
    width on the first-iteration K and the n=64 twin, every width bitwise
    equal on the lower triangle and its whole Kinv held to the float64
-   application as above; each kernel's time, its plain version's, the
-   library call's and the function's bound;
+   application as above; K8's time in each layout at both shapes; each
+   kernel's time, its plain version's, the library call's and the
+   function's bound;
 11. the conic IPM main path at full width: the entropy family
    (bench.py:395-457, B=1024, c ~ N(0, 1) from default_rng(5), settings of
    bench.py:424-429) through CompiledConicSolver with K6 + K7 and with
-   ldl_inverse=False (K6 + K8), every instance solved and the objective
-   within 1e-2 of logsumexp(c); where the time goes (K6 and K7 by CUDA
-   events inside one more solve); one instance through
+   ldl_inverse=False (K6 + K8; its mean and largest iterations printed
+   beside those of K8's first design), every instance solved and the
+   objective within 1e-2 of logsumexp(c); where the time goes (K6 and K7
+   by CUDA events inside one more solve); one instance through
    generate_code(solver='CLARABEL') -> solve(method='CPG'); the ADP SOCP
    family (bench.py:347-392) through the default generate_code route (the
    IPM, 'schur' mode: no kernel), solve(method='CPG') and solve_batch at
@@ -160,9 +166,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    and settings; the shared engine's set-up through the port's own
    functions): from the state that 100 iterations of the K4 route reach,
    50 iterations (one check interval) at kkt_refine 0 and 1 on the
-   rho-scaled state, x, z, y within K11_TOL * max(1, |v|_inf) of its plain
-   version and of the K4 route at the same fixed rho; K11's time, its plain
+   rho-scaled state, by the launch plan's group of instances per thread
+   block (printed; ops/banded_shared_kernel.py::iterate_launch_plan, its
+   shared memory held to the library's), x, z, y within K11_TOL * max(1,
+   |v|_inf) of its plain version and of the K4 route at the same fixed
+   rho, and bitwise equal at pinned groups 1, 2 and 4; five instances at
+   two per block (a partial last group) within K11_TOL of the plain
+   version and bitwise equal at one per block; K11's time, its plain
    version's, the K4 route's over the same 50 iterations and the bound;
+   K11's time by group at B=256 and by batch at two per block (2, 64,
+   128, 256: what the blocks' shared memory traffic costs);
    K4, K11 and the float32 set-up (D_M, L_M, B0, B1, the CR factor) held
    bitwise equal across two calls, and two eps-1e-4 solves to equal mean
    iterations (the banded segment sums take no atomics);
@@ -1982,6 +1995,11 @@ LDL_TOL = 1e-4
 # float64 application of that factor within twice their plain versions',
 # plus this floor, by two measures (entry_errs)
 LDL_APPLY_FLOOR = 1e-6
+# the entropy batch (seed 5) through K6 + K8 with K8's first design (one
+# block per instance, L read from device memory in both sweeps): mean and
+# largest iterations, as ab_kernels.py k8 measured it on an H100 80GB HBM3
+# at 700 W; phase 11 prints this run's beside them
+K8_FIRST_DESIGN_ITERS = (13.1914, 20)
 
 
 def entropy_problem(ct, n):
@@ -2103,16 +2121,16 @@ def compare_ldl(K, signs, dd, label, factor_tol=LDL_TOL):
     """K6 against its plain version on one KKT batch: L, d and Linv within
     ``factor_tol`` * max(1, |v|_inf) per instance; with ``factor_tol``
     None, both factors held to the float64 factor of the same K instead,
-    by the rule below.  Then K7's inverse and K8's x of a random b, from
-    K6's factor, each beside its plain version on the same factor, both
-    held to the float64 application of that factor: the kernel's error
-    within twice the plain version's plus LDL_APPLY_FLOOR, by both
-    measures of entry_errs.  (The IPM's K has pivots at the regularization
-    floor, so float32 roundoff is amplified by cond(K'); two float32
-    results then differ by far more than LDL_TOL, and float64 shows which
-    of the two is closer.)  Returns the factor's worst relative distance
-    to its plain version and, per held output, its errors and its
-    distance to its plain version."""
+    by the rule below.  Then K7's inverse and K8's x of a random b, from K6's
+    factor (K8 in each layout that fits, k8_layouts), each beside its plain
+    version on the same factor, both held to the float64 application of that
+    factor: the kernel's error within twice the plain version's plus
+    LDL_APPLY_FLOOR, by both measures of entry_errs.  (The IPM's K has pivots
+    at the regularization floor, so float32 roundoff is amplified by cond(K');
+    two float32 results then differ by far more than LDL_TOL, and float64 shows
+    which of the two is closer.)  Returns the factor's worst relative distance
+    to its plain version and, per held output, its errors and its distance to
+    its plain version."""
     from cvxpygen_tpu_torch.ops import ldl_kernel as lk
     from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
     check(bool(torch.isfinite(K).all()), f'{label}: non-finite K')
@@ -2137,6 +2155,7 @@ def compare_ldl(K, signs, dd, label, factor_tol=LDL_TOL):
                  lk.ldl_solve_plain(fac64, b.double()))):
             held[name] = (entry_errs(kern, exact), entry_errs(plain, exact),
                           float(inst_err(kern, plain).max()))
+        held_solve = k8_layouts(fac, b, fac64, label)
     torch.cuda.synchronize()
     worst = {k: float(v.max()) for k, v in errs.items()}
     print(f'# phase 10: {label}: B={K.shape[0]}, N={K.shape[1]}, '
@@ -2153,11 +2172,69 @@ def compare_ldl(K, signs, dd, label, factor_tol=LDL_TOL):
         for k, v in worst.items():
             check(v <= factor_tol,
                   f'{label}: {k} differs by {v:.3e} > {factor_tol}')
-    for k, (ek, ep, _) in held.items():
+    for k, (ek, ep, _) in list(held.items()) + list(held_solve.items()):
         for what, a, b in zip(('max', 'median entry'), ek, ep):
             check(a <= 2 * b + LDL_APPLY_FLOOR, f'{label}: {k} {what} error '
                   f'{a:.3e} > 2 x plain {b:.3e} + {LDL_APPLY_FLOOR}')
     return max(worst.values()), held
+
+
+def k8_layouts(fac, b, fac64, label, tol=None):
+    """K8 in each layout that fits this factor (resident at p = 16 up to
+    Np = 320, streamed always; ops/ldl_kernel.py::solve_plan) on b: x
+    against the plain version on the same factor (within ``tol`` * max(1,
+    |x|_inf) per instance unless ``tol`` is None), a second call bitwise
+    equal, and the shared-memory rule held to the library's.  Returns per
+    layout the errors of x and of the plain version against the float64
+    application of the factor, for compare_ldl's rule, and the distance to
+    the plain version."""
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    N = b.shape[1]
+    plan = lk.solve_plan(N)
+    plain = lk.ldl_solve_plain(fac, b)
+    exact = lk.ldl_solve_plain(fac64, b.double())
+    ep = entry_errs(plain, exact)
+    out = {}
+    for lay in range(plan['layout_id'], len(lk.SOLVE_LAYOUTS)):
+        name = lk.SOLVE_LAYOUTS[lay]
+        xk = lk._solve_launch(fac, b, lay)
+        same = torch.equal(lk._solve_launch(fac, b, lay), xk)
+        err = float(inst_err(xk, plain).max())
+        out[f'x ({name} K8)'] = (entry_errs(xk, exact), ep, err)
+        print(f'# phase 10: {label}: K8 {name} layout (plan: '
+              f'{plan["layout"]}): max |d| / max(1, |x|_inf) to its plain '
+              f'version {err:.3e}' + ('' if tol is None else f' (bar {tol})')
+              + f'; a second call bitwise equal {same}')
+        check(same, f'{label}: K8 {name} is not deterministic')
+        check(tol is None or err <= tol, f'{label}: K8 {name} differs from '
+              f'its plain version by {err:.3e} > {tol}')
+        check(lk._LIB_SOLVE.ldl_solve_smem_bytes(plan['Np'], plan['p'],
+                                                 int(lay == 0))
+              == lk.solve_smem_bytes(N, lay, plan['p']),
+              f'K8 shared-memory rule at N={N}, {name}')
+    return out
+
+
+def k8_well_conditioned(shapes=((161, 256), (321, 64))):
+    """K8 on K6's factor of phase 10's well-conditioned quasidefinite K at
+    the entropy shape (N=161: both layouts) and its n=64 twin's (N=321:
+    streamed), each layout within LDL_TOL * max(1, |x|_inf) per instance
+    of its plain version.  (On the IPM's own K, whose pivots sit at the
+    regularization floor, any two float32 orders of the solve differ by
+    far more than LDL_TOL, the first design's too: compare_ldl holds K8
+    there to the float64 application of the factor.)"""
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    from cvxpygen_tpu_torch.solvers.admm import full_f32_matmul
+    g = torch.Generator(device='cuda').manual_seed(4)
+    for N, B in shapes:
+        K, signs = well_conditioned_large(N, B, g)
+        with full_f32_matmul():
+            fac = lk.ldl_factor_kernel(K, signs, 1e-4)
+            b = torch.randn((B, N), generator=g, device='cuda')
+            fac64 = dict(fac, **{k: fac[k].double()
+                                 for k in ('L', 'd', 'Linv')})
+            k8_layouts(fac, b, fac64, f'well-conditioned K, N={N}, B={B}',
+                       LDL_TOL)
 
 
 def k7_large_batch(B=70000, n=3, m=4):
@@ -2280,6 +2357,26 @@ def k7_widths(K, signs, dd, card, label):
     check(lk._LIB_INVERSE.ldl_inverse_smem_bytes(
         plan['Np'], plan['p'], plan['width'], int(plan['resident']))
           == plan['smem_bytes'], f'K7 shared-memory rule at N={N}')
+
+
+def time_k8_layouts(K, signs, dd, card, label):
+    """K8's time in each layout that fits K6's factor of K (CUDA events),
+    with the bound."""
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    B, N, _ = K.shape
+    fac = lk.ldl_factor_kernel(K, signs, dd)
+    b = torch.randn((B, N), device=K.device)
+    plan = lk.solve_plan(N)
+    line = []
+    for lay in range(plan['layout_id'], len(lk.SOLVE_LAYOUTS)):
+        ms = cuda_ms(lambda: lk._solve_launch(fac, b, lay), 20)[0]
+        line.append(f'{lk.SOLVE_LAYOUTS[lay]} {ms:.4f} ms')
+    bound_ms, bound_by, _, _ = k8_bound(B, N)
+    print(f'# phase 10: K8 {label}, B={B}, N={N} (plan: {plan["layout"]}, '
+          f'{plan["smem_bytes"]} B of shared memory, {plan["threads"]} '
+          f'threads, {plan["blocks_per_sm"]} blocks per SM), by layout: '
+          + ', '.join(line) + f'; bound {bound_ms:.5f} ms ({bound_by}) '
+          f'[{card}]')
 
 
 def time_ldl(K, signs, dd, card):
@@ -2448,10 +2545,13 @@ def phase_conic(card, dev='cuda'):
     # there, so both are held to the float64 factor
     compare_ldl(K1, s0, dd, "each instance's last iteration, Np=176",
                 factor_tol=None)
+    k8_well_conditioned()
     k7_large_batch()
     k7_large_n(card)
     k7_widths(K0, s0, dd, card, 'first iteration')
     k7_widths(KL, sL, dd, card, 'n=64 twin')
+    time_k8_layouts(K0, s0, dd, card, 'first iteration')
+    time_k8_layouts(KL, sL, dd, card, 'n=64 twin')
     numbers = time_ldl(K0, s0, dd, card)
     # max_abs_err: K6 to its plain version; K7 and K8 to theirs (both
     # relative to max(1, |v|_inf) per instance, the first iteration's K)
@@ -2491,6 +2591,12 @@ def phase_conic(card, dev='cuda'):
         else:
             check(counts[2] > 0 and counts[1] == 0, f'{label}: launches')
             launches['ldl_solve'] = counts[2]
+            iters = out['iters'].float()
+            print(f'# phase 11: entropy through K6 + K8: mean iters '
+                  f'{float(iters.mean()):.4f} (max {int(iters.max())}); '
+                  f'with K8\'s first design '
+                  f'{K8_FIRST_DESIGN_ITERS[0]} (max '
+                  f'{K8_FIRST_DESIGN_ITERS[1]})')
     ldl_share(esolver, etheta, card)
 
     # one entropy instance through generate_code(solver='CLARABEL')
@@ -2911,6 +3017,80 @@ def inst_err_last(a, b):
     return inst_err(a.movedim(-1, 0), b.movedim(-1, 0))
 
 
+def first_cols(t, n):
+    """A contiguous copy of the first n instances of a (., B) tensor."""
+    return t[..., :n].clone(memory_format=torch.contiguous_format)
+
+
+def k11_partial(k45, shared, q, l, u, start, ikw, B=5):
+    """K11 on the first B instances at two per thread block (the last group
+    partial), kkt_refine 0 and 1: x, z, y within K11_TOL * max(1,
+    |v|_inf) of its plain version and bitwise equal at one per block."""
+    fac, meta, B0, B1, D_M, L_M, rho = shared
+    sub = [first_cols(t, B) for t in (q, l, u)]
+    for refine in (0, 1):
+        outs = {}
+        for grp in (2, 1):
+            xs, zs, ys = (first_cols(t, B) for t in start)
+            k45.banded_iterate(fac, meta, B0, B1, D_M, L_M, rho, *sub, xs,
+                               zs, ys, kkt_refine=refine, group=grp, **ikw)
+            outs[grp] = (xs, zs, ys)
+        xp, zp, yp = (first_cols(t, B) for t in start)
+        k45.banded_iterate_plain(fac, meta, B0, B1, D_M, L_M, rho, *sub, xp,
+                                 zp, yp, kkt_refine=refine, **ikw)
+        err = max(float(inst_err_last(a, b).max())
+                  for a, b in zip(outs[2], (xp, zp, yp)))
+        same = all(torch.equal(a, b) for a, b in zip(outs[2], outs[1]))
+        print(f'# phase 13: K11 kkt_refine={refine}, B={B} at 2 instances '
+              f'per block (a partial last group): max |d| / max(1, '
+              f'|v|_inf) to its plain version {err:.3e}; bitwise equal at 1 '
+              f'per block {same}')
+        check(err <= K11_TOL and same, f'K11 partial group, kkt_refine='
+              f'{refine}: {err:.3e}, bitwise {same}')
+
+
+def k11_state_bytes(nb, s, r_max, B):
+    """Bytes of per-instance state that one K11 iteration moves between
+    the SMs and L2 (a model of the design, not a reading): z, y read in
+    the A' and the A pass, l, u read and z, y written in the A pass, q read
+    in the A' pass."""
+    return 4.0 * B * (8 * nb * r_max + nb * s)
+
+
+def k11_sweeps(k45, shared, q, l, u, start, ikw, card):
+    """K11's time (50 iterations, kkt_refine 0) by pinned group at B=256,
+    and at two instances per block by batch: 2 (one thread block), 64, 128
+    and 256 (128 blocks on 132 SMs): every block runs at once, so the time
+    above one block's is what the blocks' shared L2 and device memory
+    traffic (the factor, the A windows and each instance's state) costs.
+    Beside it the state bytes per iteration by the design's model
+    (k11_state_bytes), which is not a reading; ab_kernels.py k11state
+    times the state traffic itself."""
+    fac, meta, B0, B1, D_M, L_M, rho = shared
+    nb, s, B = start[0].shape
+    r_max = l.shape[1]
+
+    def timed(Bc, grp):
+        sub = [first_cols(t, Bc) for t in (q, l, u)]
+        xs, zs, ys = (first_cols(t, Bc) for t in start)
+        return cuda_ms(lambda: k45.banded_iterate(
+            fac, meta, B0, B1, D_M, L_M, rho, *sub, xs, zs, ys, kkt_refine=0,
+            group=grp, **ikw), 3)[0]
+
+    by_group = {grp: timed(B, grp) for grp in (1, 2, 4)}
+    by_batch = {Bc: timed(Bc, 2) for Bc in (2, 64, 128, B)}
+    n_it = ikw['check_interval']
+    print(f'# phase 13: K11 by instances per block at B={B}, {n_it} '
+          'iterations: ' + ', '.join(f'{k}: {v:.4f} ms'
+                                     for k, v in by_group.items())
+          + f' (the rule: {k45.iterate_launch_plan(nb, s, B, 0)[0]}); at 2 '
+          'per block by batch: ' + ', '.join(
+              f'B={k} {v:.4f} ms' for k, v in by_batch.items())
+          + f'; state bytes per iteration at B={B} by the design\'s model '
+          f'(k11_state_bytes; not a reading) '
+          f'{k11_state_bytes(nb, s, r_max, B) / 1e6:.1f} MB [{card}]')
+
+
 def phase_iterate(card, dev='cuda'):
     """Phase 13: K11 on charging T=1440 at B=256 (phase 9's batch and
     settings): the shared engine's set-up through the port's own functions,
@@ -2959,12 +3139,26 @@ def phase_iterate(card, dev='cuda'):
     x4, z4, y4 = x.clone(), z.clone(), y.clone()
     k4_route(x4, z4, y4)
     max_err = 0.0
+    plans = {refine: k45.iterate_launch_plan(st.nb, st.s, B, refine)
+             for refine in (0, 1)}
+    # the main path: one call at each kkt_refine, counted alone
     k45.banded_iterate.launches = 0
+    runs = {}
     for refine in (0, 1):
-        xk, zk, yk = scaled()
-        k45.banded_iterate(fac, meta, B0, B1, D_M, L_M, rho, qx, ls, us, xk,
-                           zk, yk, kkt_refine=refine, **ikw)
-        torch.cuda.synchronize()
+        runs[refine] = scaled()
+        k45.banded_iterate(fac, meta, B0, B1, D_M, L_M, rho, qx, ls, us,
+                           *runs[refine], kkt_refine=refine, **ikw)
+    torch.cuda.synchronize()
+    launches = k45.banded_iterate.launches
+    for refine in (0, 1):
+        xk, zk, yk = runs[refine]
+        g, tile, smem = plans[refine]
+        print(f'# phase 13: K11 kkt_refine={refine}: the grouped launch, '
+              f'{g} instances per thread block ({-(-B // g)} blocks), CR '
+              f'steps of {tile} block pairs, {smem} B of shared memory')
+        check(k45._LIB_ITERATE.banded_iterate_smem_bytes(
+            st.nb, st.s, g, tile, refine) == smem,
+            f'K11 shared-memory rule at kkt_refine={refine}')
         xp, zp, yp = scaled()
         k45.banded_iterate_plain(fac, meta, B0, B1, D_M, L_M, rho, qx, ls,
                                  us, xp, zp, yp, kkt_refine=refine, **ikw)
@@ -2998,7 +3192,23 @@ def phase_iterate(card, dev='cuda'):
               'from the K4 route')
         if refine == 0:
             max_err = max(to_plain)
-    launches = k45.banded_iterate.launches
+        # every group of instances per thread block that fits gives the
+        # same bits (four do not fit beside a refinement sweep's buffers)
+        same = {}
+        for grp in (1, 2) if refine else (1, 2, 4):
+            xg, zg, yg = scaled()
+            k45.banded_iterate(fac, meta, B0, B1, D_M, L_M, rho, qx, ls, us,
+                               xg, zg, yg, kkt_refine=refine, group=grp,
+                               **ikw)
+            same[grp] = all(torch.equal(a, b) for a, b in
+                            zip((xg, zg, yg), (xk, zk, yk)))
+        print(f'# phase 13: K11 kkt_refine={refine}: pinned groups bitwise '
+              'equal to the plan\'s: '
+              + ', '.join(f'{k} {v}' for k, v in same.items()))
+        check(all(same.values()), f'K11 kkt_refine={refine}: a group '
+              'changes the bits')
+    k11_partial(k45, (fac, meta, B0, B1, D_M, L_M, rho), qx, ls, us,
+                scaled(), ikw)
 
     xs, zs, ys = scaled()
     ms = cuda_ms(lambda: k45.banded_iterate(
@@ -3024,6 +3234,8 @@ def phase_iterate(card, dev='cuda'):
           f'plus torch glue, no checks, fixed rho) {route_ms:.4f} ms, bound '
           f'{bound_ms:.5f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP FP32, '
           f'{nbytes / 1e6:.1f} MB) [{card}]')
+    k11_sweeps(k45, (fac, meta, B0, B1, D_M, L_M, rho), qx, ls, us,
+               scaled(), ikw, card)
 
     # determinism of the K4 route and of its set-up
     g = torch.Generator(device=dev).manual_seed(1)

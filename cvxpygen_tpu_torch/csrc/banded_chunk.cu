@@ -180,21 +180,6 @@ __device__ __forceinline__ void advance(KStep& ks, const Params& p,
   }
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// One bulk copy (the Tensor Memory Accelerator) of `bytes` from global to
-// shared memory, completing on the transaction count of mbarrier `bar`.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
-                                          int bytes, unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // Thread 0: the copies of step `ks`'s matrix blocks into `stage`, then its
 // arrival on `bar` with their byte count, which completes the barrier's
 // phase when they have landed (at once when there is nothing to copy: the
@@ -207,8 +192,7 @@ __device__ void fetch(const KStep& ks, const Params& p, const CrLevel* lv,
     bulk_copy(dst, src, 4 * n, bar);
     bytes += 4 * n;
   };
-  // the stage's last reads (generic proxy) before these writes (async)
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  ring_fence();
   if (ks.kind == kCr) {
     fetch_step(ks.cr, lv, root, p.fac, stage, p.tile, p.s * p.s, copy);
   } else if (ks.kind != kEnd) {
@@ -224,86 +208,7 @@ __device__ void fetch(const KStep& ks, const Params& p, const CrLevel* lv,
              (g1 - 1 - lo) * win);
     }
   }
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Every thread: until the phase of parity `parity` of `bar` has completed.
-__device__ __forceinline__ void bar_wait(unsigned long long* bar,
-                                         unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-}
-
-// The G instances' values of one element of an (., B) tensor: G-wide
-// loads when `full`, else the first nv (zeros past them)
-template <int G>
-__device__ __forceinline__ void ld_inst(const float* __restrict__ g, int nv,
-                                        bool full, float (&v)[G]) {
-  if (full) {
-    if constexpr (G >= 4) {
-#pragma unroll
-      for (int q = 0; q < G / 4; ++q) {
-        const float4 a = __ldg(reinterpret_cast<const float4*>(g) + q);
-        v[4 * q] = a.x;
-        v[4 * q + 1] = a.y;
-        v[4 * q + 2] = a.z;
-        v[4 * q + 3] = a.w;
-      }
-    } else if constexpr (G == 2) {
-      const float2 a = __ldg(reinterpret_cast<const float2*>(g));
-      v[0] = a.x;
-      v[1] = a.y;
-    } else {
-      v[0] = __ldg(g);
-    }
-    return;
-  }
-#pragma unroll
-  for (int u = 0; u < G; ++u) v[u] = u < nv ? __ldg(g + u) : 0.f;
-}
-
-template <int G>
-__device__ __forceinline__ void st_inst(float* g, int nv, bool full,
-                                        const float (&v)[G]) {
-  if (full) {
-    st_vec<G>(g, v);
-    return;
-  }
-#pragma unroll
-  for (int u = 0; u < G; ++u)
-    if (u < nv) g[u] = v[u];
-}
-
-// acc[u] = sum_j w[j] x[j][u] in j order from zero, w a row in global
-// memory (16-byte aligned, s a multiple of 4), x W-wide vectors xs words
-// apart in shared memory
-template <int W>
-__device__ __forceinline__ void dot_row_ldg(const float* __restrict__ w,
-                                            const float* x, int s, int xs,
-                                            float (&acc)[W]) {
-#pragma unroll
-  for (int u = 0; u < W; ++u) acc[u] = 0.f;
-  for (int j = 0; j < s; j += 4) {
-    const float4 w4 = __ldg(reinterpret_cast<const float4*>(w + j));
-    const float wj[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float v[W];
-      ld_vec<W>(x + (j + q) * xs, v);
-#pragma unroll
-      for (int u = 0; u < W; ++u) acc[u] = fmaf(wj[q], v[u], acc[u]);
-    }
-  }
+  ring_arrive(bar, bytes);
 }
 
 // The residual pass's products from the matrices in global memory, for W
@@ -340,30 +245,6 @@ __device__ __forceinline__ void atv_glob(const Params& p, const float* v,
                v + (size_t)(g - 1) * R * G, R, G, hi);
 #pragma unroll
   for (int u = 0; u < W; ++u) acc[u] = acc[u] + hi[u];
-}
-
-// (P v)_(g, i) for the block-tridiagonal P: (D_g v_g + L_{g-1} v_{g-1})
-// + L_g' v_{g+1}
-template <int G, int W>
-__device__ __forceinline__ void btmv_glob(const Params& p, const float* v,
-                                          int s, int g, int i,
-                                          float (&acc)[W]) {
-  const int ss = s * s;
-  float d[W];
-  dot_row_ldg<W>(p.DP + (size_t)g * ss + i * s, v + (size_t)g * s * G, s, G,
-                 acc);
-  if (g >= 1) {
-    dot_row_ldg<W>(p.LP + (size_t)(g - 1) * ss + i * s,
-                   v + (size_t)(g - 1) * s * G, s, G, d);
-#pragma unroll
-    for (int u = 0; u < W; ++u) acc[u] += d[u];
-  }
-  if (g + 1 < p.nb) {
-    dot_col<W>(p.LP + (size_t)g * ss + i, s, v + (size_t)(g + 1) * s * G, s,
-               G, d);
-#pragma unroll
-    for (int u = 0; u < W; ++u) acc[u] += d[u];
-  }
 }
 
 // Block j of the grid runs instances [j G, j G + G) (fewer in a partial
@@ -406,13 +287,13 @@ __global__ void __launch_bounds__(G >= 2 ? 2 * kThreads : kThreads)
   const float sigma = p.sigma, alpha = p.alpha;
   for (int e = tid; e < nx; e += NT) {
     float v[G];
-    ld_inst<G>(p.x + (size_t)e * B + j0, nv, full, v);
+    ld_inst<G, false>(p.x + (size_t)e * B + j0, nv, full, v);
     st_vec<G>(X + (size_t)e * G, v);
   }
   for (int e = tid; e < nr; e += NT) {
     float zv[G], yv[G], vv[G];
-    ld_inst<G>(p.z + (size_t)e * B + j0, nv, full, zv);
-    ld_inst<G>(p.y + (size_t)e * B + j0, nv, full, yv);
+    ld_inst<G, false>(p.z + (size_t)e * B + j0, nv, full, zv);
+    ld_inst<G, false>(p.y + (size_t)e * B + j0, nv, full, yv);
     const float rh = __ldg(p.rho + e);
 #pragma unroll
     for (int u = 0; u < G; ++u) vv[u] = __fmaf_rn(rh, zv[u], -yv[u]);
@@ -426,13 +307,7 @@ __global__ void __launch_bounds__(G >= 2 ? 2 * kThreads : kThreads)
   if (active) {
     // the ring: stage n % kRing holds step n, filled by thread 0 one step
     // ahead and awaited on its mbarrier, whose phase n / kRing it is
-    if (tid == 0) {
-      for (int q = 0; q < kRing; ++q)
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                         smem_u32(&ring_bar[q]))
-                     : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
+    if (tid == 0) ring_init(ring_bar, kRing);
     __syncthreads();
     KStep cs{kAtv, 0, 0, first_step(cm.n_levels)};
     KStep is = cs;
@@ -595,7 +470,7 @@ __global__ void __launch_bounds__(G >= 2 ? 2 * kThreads : kThreads)
   float* DY = V;
   for (int e = tid; e < nx; e += NT) {
     float x0[G], xv[G], dv[G];
-    ld_inst<G>(p.x + (size_t)e * B + j0, nv, full, x0);
+    ld_inst<G, false>(p.x + (size_t)e * B + j0, nv, full, x0);
     ld_vec<G>(X + (size_t)e * G, xv);
 #pragma unroll
     for (int u = 0; u < G; ++u) {
@@ -607,8 +482,8 @@ __global__ void __launch_bounds__(G >= 2 ? 2 * kThreads : kThreads)
   }
   for (int e = tid; e < nr; e += NT) {
     float y0[G], z0[G], yv[G], zv[G], dv[G];
-    ld_inst<G>(p.y + (size_t)e * B + j0, nv, full, y0);
-    ld_inst<G>(p.z + (size_t)e * B + j0, nv, full, z0);
+    ld_inst<G, false>(p.y + (size_t)e * B + j0, nv, full, y0);
+    ld_inst<G, false>(p.z + (size_t)e * B + j0, nv, full, z0);
     ld_vec<G>(Y + (size_t)e * G, yv);
     ld_vec<G>(Z + (size_t)e * G, zv);
 #pragma unroll
@@ -695,8 +570,8 @@ __global__ void __launch_bounds__(G >= 2 ? 2 * kThreads : kThreads)
     for (int o = t; o < nx; o += kThreads) {
       const int g = o / s, i = o - g * s;
       float px[W], pdx[W], aty[W], atdy[W], qv[W], dxv[W];
-      btmv_glob<G, W>(p, X + u0, s, g, i, px);
-      btmv_glob<G, W>(p, DX + u0, s, g, i, pdx);
+      btmv_glob<G, W>(p.DP, p.LP, p.nb, X + u0, s, g, i, px);
+      btmv_glob<G, W>(p.DP, p.LP, p.nb, DX + u0, s, g, i, pdx);
       atv_glob<G, W>(p, Y + u0, s, g, i, aty);
       atv_glob<G, W>(p, DY + u0, s, g, i, atdy);
       ld_inst<W>(p.q + (size_t)o * B + j0 + u0, nvh, full, qv);

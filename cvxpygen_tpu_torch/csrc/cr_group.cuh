@@ -1,7 +1,10 @@
-// The grouped cyclic-reduction (CR) solve of kernels K4 (cr_solve.cu) and
-// K5 (banded_chunk.cu): x = M^-1 b for one shared block-tridiagonal SPD M,
-// given its packed factor (csrc/cr.cuh's layout and level table), for a
-// group of G instances per thread block whose state lives in shared memory.
+// The grouped cyclic-reduction (CR) solve of kernels K4 (cr_solve.cu), K5
+// (banded_chunk.cu) and K11 (banded_iterate.cu): x = M^-1 b for one shared
+// block-tridiagonal SPD M, given its packed factor (csrc/cr.cuh's layout
+// and level table), for a group of G instances per thread block whose
+// state lives in shared memory.  Also the pieces the three kernels share
+// around it: the ring of bulk copies (K5, K11) and G-wide accesses to
+// instance-minor tensors in global memory.
 //
 // - State.  One nb * s buffer per instance, interleaved so that the G
 //   instances of an element are adjacent (a G-wide vector: one 16-byte
@@ -23,20 +26,23 @@
 //   Dinv_t).  fetch_step names the runs of a step's blocks for a stage of
 //   kSlots * tile * s * s words, and the kernel copies them into a ring of
 //   stages ahead of their use (K4: 16-byte cp.async by every thread, three
-//   stages; K5: bulk copies by one thread, two), so the dependent chain
+//   stages; K5 and K11: bulk copies by one thread), so the dependent chain
 //   sees shared-memory latency and one block barrier per step.
-// - Threads.  H threads (1 in K4, 2 in K5) take each of up to
-//   kPairsPerThread (block, row) pairs of a step, each for G / H of the
-//   instances: a thread loads each factor row once (four floats at a time)
-//   and applies it to its instances from registers.  The threads of a
-//   block's s rows sit in one warp when they divide 32, so the backward
-//   sweep's in-place Dinv product and the root's need only __syncwarp;
-//   above that they take block barriers.
-// - Order.  Every dot product runs in j order from zero by fmaf, and each
-//   row subtracts them in the order of csrc/cr.cuh's cr_solve_block (even
-//   block, then A_{t-1} b_{2t-1}, then C_t b_{2t+1}; then L_even, then
-//   L_left'), so an instance's result does not depend on G and equals the
-//   one-instance solve's to the bit.  No atomics.
+// - Threads.  H threads (1 in K4, 2 in K5 and K11 for G >= 2) take each
+//   of up to kPairsPerThread (block, row) pairs of a step, each for G / H
+//   of the instances: a thread loads each factor row once (four floats at
+//   a time) and applies it to its instances from registers.  The threads
+//   of a block's s rows sit in one warp when they divide 32, so the
+//   backward sweep's in-place Dinv product and the root's need only
+//   __syncwarp; above that they take block barriers.
+// - Order.  Every dot product runs in j order from zero by fmaf; a forward
+//   row is the even block's value minus the A_{t-1} b_{2t-1} dot, then
+//   minus the C_t b_{2t+1} dot; a backward row is the odd block's value
+//   minus the L_even_t x_2t dot, then minus the L_left_t' x_{2t+2} dot
+//   (a column of L_left), and x_{2t+1} is the Dinv_t dot of that; the
+//   root is the Root dot.  That is the order of the one-instance solve
+//   these kernels first used, so an instance's result does not depend on
+//   G and equals that solve's to the bit.  No atomics.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -115,6 +121,63 @@ __device__ __forceinline__ void fetch_step(const Step& st, const CrLevel* lv,
   }
 }
 
+// The ring (K5, K11): stages of shared memory that one thread fills by
+// bulk copies (the Tensor Memory Accelerator), each stage's copies counted
+// in by its mbarrier, so that the other threads never wait to issue a copy.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Thread 0: the mbarriers of n stages, one arrival each per phase.
+__device__ __forceinline__ void ring_init(unsigned long long* bars, int n) {
+  for (int q = 0; q < n; ++q)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                     smem_u32(&bars[q]))
+                 : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Before a stage's copies: its last reads (generic proxy) before their
+// writes (async proxy).
+__device__ __forceinline__ void ring_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One bulk copy of `bytes` from global to shared memory, completing on the
+// transaction count of mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          int bytes, unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// After a stage's copies: the arrival on `bar` with their byte count, which
+// completes the barrier's phase when they have landed (at once for none).
+__device__ __forceinline__ void ring_arrive(unsigned long long* bar,
+                                            int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Every thread: until the phase of parity `parity` of `bar` has completed.
+__device__ __forceinline__ void bar_wait(unsigned long long* bar,
+                                         unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
 // G-wide vectors of adjacent instances
 template <int G>
 __device__ __forceinline__ void ld_vec(const float* p, float (&v)[G]) {
@@ -146,6 +209,57 @@ __device__ __forceinline__ void st_vec(float* p, const float (&v)[G]) {
   } else {
     p[0] = v[0];
   }
+}
+
+// a load through the read-only path (data the kernel never writes) or a
+// plain one
+template <bool RO, class T>
+__device__ __forceinline__ T ld_glob(const T* p) {
+  if constexpr (RO)
+    return __ldg(p);
+  else
+    return *p;
+}
+
+// The G instances' values of one element of an instance-minor (., B)
+// tensor in global memory: G-wide loads when `full`, else the first nv
+// (zeros past them).  RO: the kernel never writes the tensor.
+template <int G, bool RO = true>
+__device__ __forceinline__ void ld_inst(const float* g, int nv, bool full,
+                                        float (&v)[G]) {
+  if (full) {
+    if constexpr (G >= 4) {
+#pragma unroll
+      for (int q = 0; q < G / 4; ++q) {
+        const float4 a = ld_glob<RO>(reinterpret_cast<const float4*>(g) + q);
+        v[4 * q] = a.x;
+        v[4 * q + 1] = a.y;
+        v[4 * q + 2] = a.z;
+        v[4 * q + 3] = a.w;
+      }
+    } else if constexpr (G == 2) {
+      const float2 a = ld_glob<RO>(reinterpret_cast<const float2*>(g));
+      v[0] = a.x;
+      v[1] = a.y;
+    } else {
+      v[0] = ld_glob<RO>(g);
+    }
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < G; ++u) v[u] = u < nv ? ld_glob<RO>(g + u) : 0.f;
+}
+
+template <int G>
+__device__ __forceinline__ void st_inst(float* g, int nv, bool full,
+                                        const float (&v)[G]) {
+  if (full) {
+    st_vec<G>(g, v);
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < G; ++u)
+    if (u < nv) g[u] = v[u];
 }
 
 // acc[u] = sum_j w[j] x[j][u] in j order from zero: w one factor row (s
@@ -183,6 +297,55 @@ __device__ __forceinline__ void dot_col(const float* w, int ld,
     ld_vec<W>(x + j * xs, v);
 #pragma unroll
     for (int u = 0; u < W; ++u) acc[u] = fmaf(wj, v[u], acc[u]);
+  }
+}
+
+// acc[u] = sum_j w[j] x[j][u] in j order from zero, w a row in global
+// memory (16-byte aligned, s a multiple of 4), x W-wide vectors xs words
+// apart in shared memory
+template <int W>
+__device__ __forceinline__ void dot_row_ldg(const float* __restrict__ w,
+                                            const float* x, int s, int xs,
+                                            float (&acc)[W]) {
+#pragma unroll
+  for (int u = 0; u < W; ++u) acc[u] = 0.f;
+  for (int j = 0; j < s; j += 4) {
+    const float4 w4 = __ldg(reinterpret_cast<const float4*>(w + j));
+    const float wj[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float v[W];
+      ld_vec<W>(x + (j + q) * xs, v);
+#pragma unroll
+      for (int u = 0; u < W; ++u) acc[u] = fmaf(wj[q], v[u], acc[u]);
+    }
+  }
+}
+
+// (M v)_(g, i) for a block-tridiagonal M with diagonal blocks D (nb, s, s)
+// and sub-diagonal blocks L (nb - 1, s, s) in global memory:
+// (D_g v_g + L_{g-1} v_{g-1}) + L_g' v_{g+1}, for W instances of a vector
+// v in shared memory (element (block P, row i) at (P s + i) G, the first of
+// the W at v)
+template <int G, int W>
+__device__ __forceinline__ void btmv_glob(const float* D, const float* L,
+                                          int nb, const float* v, int s,
+                                          int g, int i, float (&acc)[W]) {
+  const int ss = s * s;
+  float d[W];
+  dot_row_ldg<W>(D + (size_t)g * ss + i * s, v + (size_t)g * s * G, s, G,
+                 acc);
+  if (g >= 1) {
+    dot_row_ldg<W>(L + (size_t)(g - 1) * ss + i * s,
+                   v + (size_t)(g - 1) * s * G, s, G, d);
+#pragma unroll
+    for (int u = 0; u < W; ++u) acc[u] += d[u];
+  }
+  if (g + 1 < nb) {
+    dot_col<W>(L + (size_t)g * ss + i, s, v + (size_t)(g + 1) * s * G, s, G,
+               d);
+#pragma unroll
+    for (int u = 0; u < W; ++u) acc[u] += d[u];
   }
 }
 

@@ -20,17 +20,16 @@
 // the factor's trips from L2 set its time.
 //
 // Design.  As in the TPU kernel, instances share the factor: a thread block
-// takes a group of G consecutive instances (G = 1, 2, 4 or 8, the
-// wrapper's rule) and reads the factor once for all of them, so the L2
-// traffic for the factor is B / G times 0.69 MB.  The solve is
-// csrc/cr_group.cuh's (one in-place strided CR state per instance, the
-// factor staged by cp.async two steps ahead), which kernel K5 shares; b
-// comes in by cp.async with the first step's factor blocks, and x goes out,
-// as G-wide vectors of adjacent instances.  s = 8 (the charging family's)
-// is compiled as a constant, other sizes at run time.  An instance's x does
-// not depend on G, and two calls give the same bits.  FP32 FMA, no tensor
-// cores (8 x 8 blocks at charging).  Kernel K11 keeps csrc/cr.cuh's
-// one-instance solve.
+// takes a group of G consecutive instances (G = 1, 2, 4 or 8, the wrapper's
+// rule) and reads the factor once for all of them, so the L2 traffic for the
+// factor is B / G times 0.69 MB.  The solve is csrc/cr_group.cuh's (one
+// in-place strided CR state per instance, the factor staged by cp.async two
+// steps ahead), which kernels K5 and K11 share; b comes in by cp.async with
+// the first step's factor blocks, and x goes out, as G-wide vectors of
+// adjacent instances.  s = 8 (the charging family's) is compiled as a
+// constant, other sizes at run time.  An instance's x does not depend on G,
+// and two calls give the same bits.  FP32 FMA, no tensor cores (8 x 8 blocks
+// at charging).
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>

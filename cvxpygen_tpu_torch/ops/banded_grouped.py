@@ -156,12 +156,12 @@ def pack_cr_levels(fac):
     Layout per level: [Dinv_odd (n2), A (na), C (n2), L_left (nl),
     L_even (ne)], then root_inv (1).  Returns (packed, meta) with
     meta = list of dicts of (offset, count) per tensor + 'root' offset.
-    The 'lleft' offsets index the reference's separate L_left pack
-    (its ``pack_lleft``), which only its fused-iterate kernel reads; the
-    port's counterpart, kernel K11 (ops/banded_shared_kernel.
-    banded_iterate), reads L_left from this packed factor through
-    csrc/cr.cuh, so ``pack_lleft`` has no port.  The offsets are kept so
-    that the metadata equals the reference's."""
+    The 'lleft' offsets index the reference's separate L_left pack (its
+    ``pack_lleft``), which only its fused-iterate kernel reads; the port's
+    counterpart, kernel K11 (ops/banded_shared_kernel. banded_iterate), reads
+    L_left from this packed factor through csrc/cr_group.cuh, so ``pack_lleft``
+    has no port.  The offsets are kept so that the metadata equals the
+    reference's."""
     parts = []
     meta = []
     off = 0

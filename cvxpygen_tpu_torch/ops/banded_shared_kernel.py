@@ -19,15 +19,13 @@ tensor (ops/banded_grouped.pack_cr_levels).  Two kernels use that factor:
   once per check interval.  CUDA source: csrc/banded_chunk.cu.
 
 - K11, ``banded_iterate``: ``check_interval`` fused ADMM iterations per
-  instance on the rho-scaled state, no checks, for any nb (the shared
-  memory of one block holds x, z, y and the CR buffers of charging
-  T=1440).  Replaces ``_banded_iterate_kernel`` (wrapper
-  ``banded_iterate``), which the reference ships but no solver calls; no
-  solver of the port calls it either.  CUDA source: csrc/banded_iterate.cu.
+  instance on the rho-scaled state, no checks, for any nb.  Replaces
+  ``_banded_iterate_kernel`` (wrapper ``banded_iterate``), which the
+  reference ships but no solver calls; no solver of the port calls it
+  either.  CUDA source: csrc/banded_iterate.cu.
 
-K4 and K5 share the grouped CR solve of csrc/cr_group.cuh (instances in
-groups, the factor staged per group); K11 keeps the one-instance solve of
-csrc/cr.cuh.  Each wrapper
+All three share the grouped CR solve of csrc/cr_group.cuh (instances in
+groups, the factor staged per group).  Each wrapper
 runs its plain torch version (``cr_solve_plain``,
 ``banded_shared_chunk_plain``, ``banded_iterate_plain``, the same
 arithmetic) on CPU tensors and launches its CUDA kernel (float32, built
@@ -40,19 +38,21 @@ bit-packed 1 ok, 2 p_inf, 4 d_inf.  The reference tiles the batch into
 VMEM-sized chunks (its ``pick_banded_chunk``); nothing in any of the
 kernels depends on the tiling, because every decision that couples
 instances (done, adaptive rho, refactorization) is the solve loop's, over
-the whole batch.  So the port has no chunk argument: K11 takes one thread
-block per instance, K4 and K5 a group of 1-8 consecutive instances per
-block (``pick_cr_group``), which shares each read of the shared matrices
-and changes no bit of the answer.
+the whole batch.  So the port has no chunk argument: each kernel takes a
+group of 1-8 consecutive instances per thread block (``pick_cr_group``),
+which shares each read of the shared matrices and changes no bit of the
+answer.
 
 What bounds them on the card: K4 is bytes-bound (b in, x out and the
 factor once: 9.6 MB against 89 MFLOP at charging T=1440, B=256); its
 dependent levels and the factor's trips from L2 set its time, so its
-groups stage the factor through shared memory (csrc/cr_solve.cu).  K5 is
-bound by operations on paper; in practice the shared factor and grouped A
-that every iteration reads (340 KB at MPC H=30) set its time, so its
-groups stage them through shared memory by bulk copies, one read for up
-to eight instances (csrc/banded_chunk.cu).  See the notes in the CUDA
+groups stage the factor through shared memory (csrc/cr_solve.cu).  K5 and
+K11 are bound by operations on paper; in practice the shared factor and
+grouped A that every iteration reads set their time (340 KB at MPC H=30,
+2.4 MB at charging), so their groups share those reads and stage the
+factor (K5 also the A windows) through shared memory by bulk copies.  K11
+keeps only x and the CR state of its group there and reads z, y, l, u and
+q from device memory every iteration.  See the notes in the CUDA
 sources.
 """
 from __future__ import annotations
@@ -77,7 +77,7 @@ _CR_THREADS = 256
 _CR_PAIRS = 2
 _CR_PAD = 4
 _CR_STAGE_SLOTS = 3 * 3
-_CR_STATIC = 4 * 10 * _MAX_LEVELS
+_CR_STATIC = 4 * 9 * _MAX_LEVELS
 _CR_GROUPS = (1, 2, 4, 8)
 
 _LIB_CR = None
@@ -113,26 +113,16 @@ def estimate_nb_tot(nb):
 def cr_meta_array(meta, nb, s):
     """The packed factor's metadata as the flat int list that csrc/cr.cuh
     reads (``CrMeta``): n_levels, root, nb, s, then per level nb_in, n2
-    and the offsets/counts of Dinv_odd, A, C, L_left, L_even, and the
-    level's offset in the shared-memory stack of odd blocks."""
+    and the offsets/counts of Dinv_odd, A, C, L_left, L_even."""
     levels = cr_level_shapes(nb)
     if len(levels) > _MAX_LEVELS:
         raise ValueError(f'CR solve: {len(levels)} levels > {_MAX_LEVELS}')
     out = [len(levels), meta['root'], nb, s]
-    so = 0
     for lvm, shp in zip(meta['levels'], levels):
         out += [shp['nb_in'], shp['n2'], lvm['Dinv_odd'][0], lvm['A'][0],
                 lvm['A'][1], lvm['C'][0], lvm['L_left'][0],
-                lvm['L_left'][1], lvm['L_even'][0], so]
-        so += shp['n2'] * s
+                lvm['L_left'][1], lvm['L_even'][0]]
     return out
-
-
-def cr_smem_words(nb, s):
-    """Shared-memory words of one CR solve (csrc/cr.cuh): two buffers of
-    the padded block count and the stack of every level's odd blocks."""
-    stack = sum(shp['n2'] for shp in cr_level_shapes(nb)) * s
-    return 2 * (nb + nb % 2) * s + stack
 
 
 def pick_cr_group(B, sms=132):
@@ -251,12 +241,61 @@ def chunk_launch_plan(nb, s, r_max, B, group=None, sms=132):
                      'block')
 
 
-def iterate_smem_words(nb, s, r_max, kkt_refine):
-    """Shared-memory words of one K11 block (csrc/banded_iterate.cu): x, z
-    and y of one instance, the right-hand side and the refined solution
-    when ``kkt_refine`` > 0, and the CR solve."""
-    return (nb * s * (3 if kkt_refine else 1) + 2 * nb * r_max
-            + cr_smem_words(nb, s))
+# K11's launch (csrc/banded_iterate.cu): the stages of its factor ring and
+# the static shared memory of a block beside the level table (one mbarrier
+# per stage)
+_ITER_RING = 3
+_ITER_BARS = 8 * _ITER_RING
+
+
+def iterate_smem_bytes(nb, s, group, tile, kkt_refine):
+    """Dynamic shared memory of one K11 block (csrc/banded_iterate.cu
+    ``smem_words``): the CR state of ``group`` instances (nb blocks of s
+    rows of ``group``-wide vectors, _CR_PAD words apart), their x, with
+    ``kkt_refine`` > 0 also their refined solution and right-hand side
+    (x's layout), and a ring of three stages of three factor slots of
+    ``tile`` s x s blocks; every part in 16-byte lines."""
+    return 4 * (nb * (s * group + _CR_PAD)
+                + (3 if kkt_refine else 1) * _r4(nb * s * group)
+                + _ITER_RING * _r4(3 * tile * s * s))
+
+
+def iterate_scratch_words(nb, s, r_max, B, group):
+    """Floats of K11's device scratch (csrc/banded_iterate.cu): per group
+    of instances (ceil(B / group)) its z, y, l, u (nb r_max rows each) and
+    q (nb s rows), rows of ``group`` adjacent instances."""
+    return (4 * nb * r_max + nb * s) * group * -(-B // group)
+
+
+@functools.lru_cache(maxsize=None)
+def iterate_launch_plan(nb, s, B, kkt_refine, group=None, sms=132):
+    """K11's launch for x (nb, s, B) on a card of ``sms`` SMs: (group,
+    tile, smem bytes).  ``group`` instances per thread block (K4's rule,
+    ``pick_cr_group``, unless pinned: one block per SM; a smaller group
+    where its state does not fit), so ceil(B / group) blocks, the last one
+    partial when group does not divide B; ``tile`` CR block pairs per step,
+    as many as the threads take (two pairs each) and shared memory holds.
+    z, y, l, u and q stay in device memory, so r_max does not enter.
+    Raises ValueError when no plan fits."""
+    if s % 4:
+        raise ValueError(f'banded iterate kernel: s={s} is not a multiple '
+                         'of 4')
+    if group is not None and group not in _CR_GROUPS:
+        raise ValueError(f'banded iterate kernel: group={group} is not one '
+                         f'of {_CR_GROUPS}')
+    cap = pick_cr_group(B, sms) if group is None else group
+    tile_cap = _CR_PAIRS * _CR_THREADS // s
+    budget = _SMEM_LIMIT - _CR_STATIC - _ITER_BARS
+    for g in [g for g in reversed(_CR_GROUPS) if g <= cap]:
+        room = budget - iterate_smem_bytes(nb, s, g, 0, kkt_refine)
+        tile = min(tile_cap, room // (4 * _ITER_RING * 3 * s * s))
+        if tile >= 1:
+            return g, tile, iterate_smem_bytes(nb, s, g, tile, kkt_refine)
+        if group is not None:
+            break
+    raise ValueError(f'banded iterate kernel: nb={nb}, s={s}, kkt_refine='
+                     f'{kkt_refine} does not fit shared memory at {cap} '
+                     'instances per block')
 
 
 # ---------------------------------------------------------------------------
@@ -504,7 +543,10 @@ def _bind_chunk(lib):
 def _bind_iterate(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.banded_iterate_f32.restype = I
-    lib.banded_iterate_f32.argtypes = [P] * 13 + [P] + [I] * 6 + [F] * 2 + [P]
+    lib.banded_iterate_f32.argtypes = ([P] * 14 + [P] + [I] * 6 + [F] * 2
+                                       + [I] * 2 + [P])
+    lib.banded_iterate_smem_bytes.restype = ctypes.c_longlong
+    lib.banded_iterate_smem_bytes.argtypes = [I] * 5
 
 
 def build_cr_kernel(verbose=False):
@@ -673,7 +715,8 @@ banded_shared_chunk.launches = 0
 
 
 def banded_iterate(fac_packed, meta, B0, B1, D_M, L_M, rho_g, q, l, u, x, z,
-                   y, *, sigma, alpha, check_interval, kkt_refine):
+                   y, *, sigma, alpha, check_interval, kkt_refine,
+                   group=None):
     """Run check_interval fused ADMM iterations on the rho-scaled state
     (K11; the contract of the reference's ``banded_iterate``).
 
@@ -689,10 +732,12 @@ def banded_iterate(fac_packed, meta, B0, B1, D_M, L_M, rho_g, q, l, u, x, z,
         y = w - z;  x = alpha x~ + (1 - alpha) x.
     The reference's ``ll_pack`` argument (its separate pack of the
     untransposed L_left blocks, ops/banded_grouped.py::pack_lleft) is
-    dropped: csrc/cr.cuh reads L_left from the packed factor itself.  So
-    are its ``chunk`` and ``interpret``: one thread block per instance.
-    Returns (x, z, y).  CPU tensors run ``banded_iterate_plain``; CUDA
-    tensors launch the kernel (float32) or raise."""
+    dropped: the grouped CR solve reads L_left from the packed factor
+    itself.  So are its ``chunk`` and ``interpret``: ``group`` pins the
+    instances per thread block (1, 2, 4 or 8; ``iterate_launch_plan``'s
+    rule by default); no bit of the result depends on it.  Returns
+    (x, z, y).  CPU tensors run ``banded_iterate_plain``; CUDA tensors
+    launch the kernel (float32) or raise."""
     args = (fac_packed, meta, B0, B1, D_M, L_M, rho_g, q, l, u, x, z, y)
     kw = dict(sigma=sigma, alpha=alpha, check_interval=check_interval,
               kkt_refine=kkt_refine)
@@ -707,40 +752,41 @@ def banded_iterate(fac_packed, meta, B0, B1, D_M, L_M, rho_g, q, l, u, x, z,
     if kkt_refine < 0 or int(check_interval) < 0:
         raise ValueError('banded iterate kernel: negative kkt_refine or '
                          'check_interval')
-    if 4 * iterate_smem_words(nb, s, r_max, kkt_refine) > _SMEM_LIMIT:
-        raise ValueError(f'banded iterate kernel: nb={nb}, s={s}, '
-                         f'r_max={r_max} does not fit shared memory')
+    g, tile, _ = iterate_launch_plan(nb, s, B, kkt_refine, group,
+                                     _sm_count(dev))
     rho3 = checked(rho_g, 'rho_g', (nb, r_max), dev)[:, :, None]
     B0 = checked(B0, 'B0', (nb, r_max, s), dev)
     B1 = checked(B1, 'B1', (nb, r_max, s), dev)
-    refine = []
+    refine = [None, None]
     if kkt_refine:
         refine = [checked(D_M, 'D_M', (nb, s, s), dev),
                   checked(L_M, 'L_M', (nb - 1, s, s), dev)]
     # the A stores of the z-update scaled by rho (the reference's wrapper
-    # side), and q, l, u instance-major so that each block's reads are
-    # contiguous
-    ins = [checked(fac_packed, 'fac_packed', (meta['total'], s, s), dev),
-           B0, B1, (B0 * rho3).contiguous(), (B1 * rho3).contiguous()]
-    inst = [checked(q, 'q', (nb, s, B), dev).permute(2, 0, 1).contiguous(),
-            checked(l, 'l', (nb, r_max, B), dev).permute(2, 0,
-                                                         1).contiguous(),
-            checked(u, 'u', (nb, r_max, B), dev).permute(2, 0,
-                                                         1).contiguous()]
+    # side), and the windows r-major (r_max, nb, s), so that a warp's
+    # reads of them are contiguous; q, l and u in their own layout
+    ins = [checked(fac_packed, 'fac_packed', (meta['total'], s, s), dev)] + [
+        w.transpose(0, 1).contiguous()
+        for w in (B0, B1, B0 * rho3, B1 * rho3)]
+    vecs = [checked(q, 'q', (nb, s, B), dev),
+            checked(l, 'l', (nb, r_max, B), dev),
+            checked(u, 'u', (nb, r_max, B), dev)]
     state = [_in_place(x, 'x', (nb, s, B), dev),
              _in_place(z, 'z', (nb, r_max, B), dev),
              _in_place(y, 'y', (nb, r_max, B), dev)]
     build_iterate_kernel()
-    ptrs = [t.data_ptr() for t in ins] + [
-        refine[0].data_ptr() if refine else None,
-        refine[1].data_ptr() if refine else None] + [
-        t.data_ptr() for t in inst + state]
+    # the kernel's working copy of z, y, l, u and q, each group's
+    # instances adjacent (iterate_scratch_words)
+    scratch = torch.empty((iterate_scratch_words(nb, s, r_max, B, g),),
+                          dtype=torch.float32, device=dev)
+    ptrs = ([t.data_ptr() for t in ins]
+            + [None if t is None else t.data_ptr() for t in refine]
+            + [t.data_ptr() for t in vecs + state + [scratch]])
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _LIB_ITERATE.banded_iterate_f32(
             *ptrs, _meta_ptr(meta, nb, s), B, nb, s, r_max,
-            int(check_interval), kkt_refine, float(sigma), float(alpha),
-            stream)
+            int(check_interval), kkt_refine, float(sigma), float(alpha), g,
+            tile, stream)
     if err != 0:
         raise RuntimeError(f'banded_iterate kernel launch failed: CUDA error '
                            f'{err}')

@@ -236,6 +236,58 @@ def kinv_layout(N, panel: int = 16):
                 blocks_per_sm=min(_KINV_REG_BLOCKS, _SM_SMEM // per_block))
 
 
+# K8 (csrc/ldl_solve.cu): its layouts, the panels the resident one takes
+# (one mbarrier each, static shared memory) and its threads per block at
+# most; an SM's thread blocks at most
+SOLVE_LAYOUTS = ('resident', 'streamed')
+_K8_PANELS = 32
+_K8_STATIC = 8 * _K8_PANELS
+_K8_THREADS = 256
+_SM_BLOCKS = 32
+
+
+def solve_smem_bytes(N, layout, panel: int = 16):
+    """Dynamic shared memory of one K8 block (csrc/ldl_solve.cu
+    ``smem_words``) in ``layout`` (an index into ``SOLVE_LAYOUTS``):
+    resident, 1 KB of slack that starts the strips on a 1024-byte line,
+    the strictly lower triangle of L as column strips (strip j: the
+    Np - (j + 1) p rows below panel j, p columns each), the panel inverses
+    (Np, p) and d; then the right-hand side and the forward solution (Np
+    each); every part in 16-byte lines."""
+    p, Np = _dims(N, panel)
+    nbp = Np // p
+    staged = 0
+    if layout == 0:
+        staged = (256 + _round4(p * p * nbp * (nbp - 1) // 2)
+                  + _round4(Np * p) + _round4(Np))
+    return 4 * (staged + 2 * _round4(Np))
+
+
+def solve_plan(N, panel: int = 16):
+    """K8's launch for a factor of N: the panel p, Np, the layout
+    (``SOLVE_LAYOUTS``: resident at p = 16 where L's strips, the panel
+    inverses and d fit one block's shared memory, up to Np = 320, else
+    streamed: L, the panel inverses and d read from device memory, L in
+    both sweeps), its dynamic
+    shared memory, the threads per block (one per row of the padded
+    system, in whole warps, at most 256) and the thread blocks an SM holds
+    at once by shared memory and threads.  Raises ValueError above Np of
+    about 29,000, where r and z leave no room."""
+    p, Np = _dims(N, panel)
+    layout = int(p != 16 or Np // p > _K8_PANELS
+                 or solve_smem_bytes(N, 0, panel) + _K8_STATIC > _SMEM_LIMIT)
+    smem = solve_smem_bytes(N, layout, panel)
+    if smem + _K8_STATIC > _SMEM_LIMIT:
+        raise ValueError(f'ldl_solve kernel: N={N} does not fit shared '
+                         'memory')
+    threads = min(_K8_THREADS, -(-Np // 32) * 32)
+    per_block = smem + _K8_STATIC + _SM_BLOCK_RESERVE
+    return dict(p=p, Np=Np, layout=SOLVE_LAYOUTS[layout], layout_id=layout,
+                smem_bytes=smem, threads=threads,
+                blocks_per_sm=min(_SM_BLOCKS, _SM_THREADS // threads,
+                                  _SM_SMEM // per_block))
+
+
 def ldl_factor_inverse_plain(K, signs, dyn_delta, panel: int = 16):
     """K9's arithmetic in torch, batch-major, in the elimination order of
     the reference's ``_factor_inverse_kernel``: the trailing matrix kept
@@ -343,7 +395,9 @@ def _bind_inverse(lib):
 def _bind_solve(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ldl_solve_f32.restype = I
-    lib.ldl_solve_f32.argtypes = [P, P, P, P, I, I, I, I, P, P]
+    lib.ldl_solve_f32.argtypes = [P, P, P, P, I, I, I, I, I, P, P]
+    lib.ldl_solve_smem_bytes.restype = ctypes.c_longlong
+    lib.ldl_solve_smem_bytes.argtypes = [I, I, I]
 
 
 def _bind_kinv(lib):
@@ -503,20 +557,34 @@ ldl_inverse_kernel.launches = 0
 
 def ldl_solve_kernel(fac, b):
     """Solve K x = b (b (B, N) -> x (B, N)) with the factor (K8; the
-    contract of ``ldl_solve_pallas``).  CPU tensors run ``ldl_solve_plain``;
-    CUDA tensors launch the kernel (float32) or raise."""
+    contract of ``ldl_solve_pallas``), in ``solve_plan``'s layout.  CPU
+    tensors run ``ldl_solve_plain``; CUDA tensors launch the kernel
+    (float32) or raise."""
+    return _solve_launch(fac, b, None)
+
+
+def _solve_launch(fac, b, layout):
+    """``ldl_solve_kernel`` with the layout pinned (an index into
+    ``SOLVE_LAYOUTS``; None: the plan's), for timing and tests; the
+    resident layout is refused where it does not fit."""
     if b.device.type == 'cpu':
         return ldl_solve_plain(fac, b)
     dev = _cuda_device(b, 'LDL solve')
     B, N, Np, p, L, d, Linv = _fac_args(fac, dev)
     b = checked(b, 'b', (B, N), dev)
+    plan = solve_plan(N, p)
+    if layout is None:
+        layout = plan['layout_id']
+    elif layout not in (0, 1) or layout < plan['layout_id']:
+        raise ValueError(f'ldl_solve kernel: layout {layout} does not fit '
+                         f'N={N}')
     build_solve_kernel()
     x = torch.empty((B, N), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _LIB_SOLVE.ldl_solve_f32(
             L.data_ptr(), d.data_ptr(), Linv.data_ptr(), b.data_ptr(), B, N,
-            Np, p, x.data_ptr(), stream)
+            Np, p, int(layout == 0), x.data_ptr(), stream)
     _raise_on(err, 'ldl_solve')
     ldl_solve_kernel.launches += 1
     return x

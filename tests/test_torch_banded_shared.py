@@ -282,7 +282,7 @@ def _cr_solve_strided(fac, meta, b, tile):
     nb, s, _ = b.shape
     arr = kernel.cr_meta_array(meta, nb, s)
     n_levels, root = arr[0], arr[1]
-    lv = [arr[4 + 10 * k:14 + 10 * k] for k in range(n_levels)]
+    lv = [arr[4 + 9 * k:13 + 9 * k] for k in range(n_levels)]
     st = b.clone()
     nan = float('nan')
 
@@ -296,7 +296,7 @@ def _cr_solve_strided(fac, meta, b, tile):
         return slots
 
     for k in range(n_levels):
-        nb_in, n2, oD, oA, nA, oC, oLl, nLl, oLe, _ = lv[k]
+        nb_in, n2, oD, oA, nA, oC, oLl, nLl, oLe = lv[k]
         for t0 in range(0, n2, tile):
             t1 = min(t0 + tile, n2)
             lo, hi = max(t0, 1), min(t1, nA + 1)
@@ -311,7 +311,7 @@ def _cr_solve_strided(fac, meta, b, tile):
                 st[(2 * t) << k] = acc
     st[0] = stage([(root, 0, 1)], 0)[0, 0] @ st[0]
     for k in reversed(range(n_levels)):
-        nb_in, n2, oD, oA, nA, oC, oLl, nLl, oLe, _ = lv[k]
+        nb_in, n2, oD, oA, nA, oC, oLl, nLl, oLe = lv[k]
         for t0 in range(0, n2, tile):
             t1 = min(t0 + tile, n2)
             sl = stage([(oLe + t0, 0, t1 - t0),

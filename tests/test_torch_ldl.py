@@ -441,3 +441,153 @@ def test_inverse_kernel_matches_plain_on_card(N):
         scale = torch.clamp(ref.abs().amax(dim=1), min=1.0)
         assert float(((a - ref).abs().amax(dim=1) / scale).max()) <= 1e-4
         assert torch.equal(out[:, lower], first[:, lower])
+
+
+# ---------------------------------------------------------------------------
+# kernel K8's plan and schedule (csrc/ldl_solve.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('N,Np,layout,threads,per_sm', [
+    (7, 7, 'streamed', 32, 32), (40, 48, 'resident', 64, 25),
+    (161, 176, 'resident', 192, 3), (305, 320, 'resident', 256, 1),
+    (321, 336, 'streamed', 256, 8), (1601, 1616, 'streamed', 256, 8)])
+def test_solve_plan_rule(N, Np, layout, threads, per_sm):
+    """K8's plan: L's strictly lower triangle staged in shared memory as
+    column strips of 16-wide panels up to Np = 320 (three blocks per SM at
+    the entropy shape), streamed from device memory at the n = 64 twin
+    (Np = 336) and above, and for a narrower panel (one panel of 7 at
+    N=7); one thread per row in whole warps, at most 256; the shared
+    memory of each layout by the kernel's rule, within the per-block limit
+    beside the panels' barriers (the resident one with 1 KB that aligns the
+    strips for the tensor copies' swizzle); no launch where r and z leave
+    no room."""
+    plan = ldl_kernel.solve_plan(N)
+    p = min(16, N)
+    nbp = Np // p
+    assert (plan['p'], plan['Np'], plan['layout'], plan['threads'],
+            plan['blocks_per_sm']) == (p, Np, layout, threads, per_sm)
+
+    def r4(w):
+        return -(-w // 4) * 4
+
+    resident = 4 * (256 + r4(p * p * nbp * (nbp - 1) // 2) + r4(Np * p)
+                    + r4(Np) + 2 * r4(Np))
+    assert ldl_kernel.solve_smem_bytes(N, 0) == resident
+    assert ldl_kernel.solve_smem_bytes(N, 1) == 4 * 2 * r4(Np)
+    assert plan['smem_bytes'] == ldl_kernel.solve_smem_bytes(
+        N, plan['layout_id'])
+    assert (layout == 'resident') == (p == 16
+                                      and resident + 8 * 32 <= 232448)
+    assert plan['smem_bytes'] + 8 * 32 <= 232448
+    with pytest.raises(ValueError, match='does not fit'):
+        ldl_kernel.solve_plan(40000)
+
+
+def _strip_col(rl, c, p):
+    """csrc/ldl_solve.cu::strip_col: the swizzled position of column c in
+    a strip's local row rl (16-byte chunks by row at p = 16)."""
+    return (((c >> 2) ^ (rl >> 1)) & 3) << 2 | (c & 3) if p == 16 else c
+
+
+def _solve_staged(fac, b, bi, resident):
+    """csrc/ldl_solve.cu's schedule for instance bi (float64).  Resident:
+    the strictly lower triangle of L packed as the kernel's column strips
+    (strip j: rows (j + 1) p .. Np of columns jp .. jp + p, at its row
+    offset, each row's chunks swizzled), every entry once, and read back
+    through that layout; streamed: read from L.  Every product sums the
+    halves over the panel's first ceil(p / 2) and last entries.  Forward:
+    z_k = Linv_k r_k, each row below subtracting its row of the strip times
+    z_k; the diagonal; backward: x_k = Linv_k' w_k, each column left of the
+    panel subtracting the panel's rows of it times x_k."""
+    L, d, V = fac['L'][bi], fac['d'][bi], fac['Linv'][bi]
+    p, N, Np = fac['panel'], fac['N'], fac['Np']
+    nbp, hp = Np // p, (p + 1) // 2
+    row0 = [j * Np - p * (j * (j + 1) // 2) for j in range(nbp + 1)]
+    if resident:
+        S = torch.full((row0[nbp] * p,), float('nan'), dtype=L.dtype)
+        for j in range(nbp):
+            for rl in range(Np - (j + 1) * p):
+                for c in range(p):
+                    S[(row0[j] + rl) * p + _strip_col(rl, c, p)] = \
+                        L[(j + 1) * p + rl, j * p + c]
+        assert not bool(torch.isnan(S).any())
+
+        def lel(row, col):
+            j = col // p
+            rl = row - (j + 1) * p
+            return S[(row0[j] + rl) * p + _strip_col(rl, col - j * p, p)]
+    else:
+        def lel(row, col):
+            return L[row, col]
+
+    def halves(M, v):
+        return M[:, :hp] @ v[:hp] + M[:, hp:] @ v[hp:]
+
+    def dot(w, v):
+        return sum(w[:hp] * v[:hp]) + sum(w[hp:] * v[hp:])
+
+    r = torch.zeros(Np, dtype=L.dtype)
+    r[:N] = b[bi]
+    z = torch.zeros_like(r)
+    for k in range(nbp):
+        o = k * p
+        zk = halves(V[o:o + p], r[o:o + p])
+        for row in range(o + p, Np):
+            w_row = torch.stack([lel(row, o + j) for j in range(p)])
+            r[row] = r[row] - dot(w_row, zk)
+        z[o:o + p] = zk
+    w = z / d
+    x = torch.zeros_like(w)
+    for k in reversed(range(nbp)):
+        o = k * p
+        xk = halves(V[o:o + p].T, w[o:o + p])
+        for c in range(o):
+            w_col = torch.stack([lel(o + i, c) for i in range(p)])
+            w[c] = w[c] - dot(w_col, xk)
+        x[o:o + p] = xk
+    return x[:N]
+
+
+@pytest.mark.parametrize('N,nblk,panel,resident', [
+    (12, 5, 16, False), (40, 17, 16, True), (40, 17, 16, False),
+    (40, 17, 8, False), (70, 25, 16, True), (70, 25, 16, False)])
+def test_solve_schedule_matches_plain(N, nblk, panel, resident):
+    """K8's schedule in each of its layouts (the resident strips' offsets
+    and swizzle covering L's strictly lower triangle once, at p = 16; the
+    products in halves of the panel; one panel of 12 at N=12, three at
+    N=40, five of 8 columns, five of 16 at N=70) gives ldl_solve_plain's
+    x, float64."""
+    K, signs = _quasidefinite(2, N, nblk, np.random.default_rng(N + panel))
+    fac = ldl_kernel.ldl_factor_plain(torch.tensor(K), signs, 1e-9, panel)
+    b = torch.tensor(np.random.default_rng(1).standard_normal((2, N)))
+    ref = ldl_kernel.ldl_solve_plain(fac, b)
+    for bi in range(2):
+        _close(_solve_staged(fac, b, bi, resident), ref[bi], tol=1e-11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N', [7, 40, 161, 321])
+def test_solve_kernel_matches_plain_on_card(N):
+    """On a card, K8 on K6's factor of a well-conditioned quasidefinite K
+    in every layout that fits (resident at p = 16 up to Np = 320,
+    streamed always) against its plain version (1e-4 of max(1, |x|_inf)
+    per instance); a second call bitwise equal; the resident layout
+    refused at N=321."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the card: chip_smoke.py phase 10)')
+    rng = np.random.default_rng(N)
+    K, signs = _well_conditioned(5, N // 2, N - N // 2, rng)
+    Kc = torch.tensor(K, dtype=torch.float32, device='cuda')
+    b = torch.tensor(rng.standard_normal((5, N)), dtype=torch.float32,
+                     device='cuda')
+    fac = ldl_kernel.ldl_factor_kernel(Kc, signs, 1e-4)
+    ref = ldl_kernel.ldl_solve_plain(fac, b).double()
+    scale = torch.clamp(ref.abs().amax(dim=1), min=1.0)
+    first = ldl_kernel.ldl_solve_kernel(fac, b)
+    assert torch.equal(ldl_kernel.ldl_solve_kernel(fac, b), first)
+    for layout in range(ldl_kernel.solve_plan(N)['layout_id'], 2):
+        x = ldl_kernel._solve_launch(fac, b, layout).double()
+        assert float(((x - ref).abs().amax(dim=1) / scale).max()) <= 1e-4
+    if N == 321:
+        with pytest.raises(ValueError, match='layout'):
+            ldl_kernel._solve_launch(fac, b, 0)
