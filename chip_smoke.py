@@ -179,8 +179,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    K4, K11 and the float32 set-up (D_M, L_M, B0, B1, the CR factor) held
    bitwise equal across two calls, and two eps-1e-4 solves to equal mean
    iterations (the banded segment sums take no atomics);
-14. a JSON line with each kernel's launches, error, times and bound;
-15. the card's name and power limit (nvidia-smi), then the result line.
+14. the conic ADMM (the SCS route: torch, no kernel) at full width, float32,
+   eps 1e-3, max_iter 20000: the entropy family of phase 11 (B=1024, c from
+   default_rng(5)) through make_compiled_solver(fam, 'SCS') on the shared
+   engine, every instance solved and the objective within 1e-2 of
+   logsumexp(c); the same family through the default generate_code route
+   (SCS) -> solve(method='CPG'), first call and the mean of five more with
+   warm start; logistic regression (examples/logistic_and_sdp.py: 20
+   samples, 4 features, lambda 0.1; B=1024 datasets from default_rng(0),
+   so the per-instance engine) within 1e-2 of the float64 oracle on 32;
+   the max-eigenvalue SDP (s=5, B=1024 symmetric A) within 1e-2 of
+   eigvalsh in float64; the time of each batch and of one exp projection
+   of the entropy batch (CUDA events);
+15. differentiation: TorchLayer on MPC H=10 (x_init the batched
+   parameter, B=256, the settings of phase 3) with K1 in the forward, then
+   backward of w.U + |U|^2 / 2 (so that dtheta reads the forward's
+   values), against the same layer with use_pallas='never': the output U
+   within 1e-3 * max(1, |U|_inf) and dtheta within 1e-3 * max(1,
+   |dtheta|_inf) on every instance (the forwards' eps) (the float32 forwards' active sets
+   differ by roundoff on rows with multipliers and slacks near the
+   threshold: the count and those rows' largest values are printed,
+   ROADMAP.md A7), forward and backward times and K1's launches (added to
+   phase 3's in the kernels line); then
+   generate_code(gradient=True) -> cpg_gradient on the family of
+   tests/test_codegen.py::test_gradient_package, finite and within 1e-2 of
+   the CPU float64 run;
+16. a JSON line with each kernel's launches, error, times and bound;
+17. the card's name and power limit (nvidia-smi), then the result line.
 
 ``python3 chip_smoke.py --block-sweep`` instead builds the kernels and runs
 K2 on the portfolio and MPC general batches at several blocks, printing
@@ -193,11 +218,12 @@ import contextlib
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -3272,6 +3298,421 @@ def phase_iterate(card, dev='cuda'):
                 library_ms=None), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the conic ADMM (the SCS route; torch, no kernel)
+# ---------------------------------------------------------------------------
+
+# the entropy row's family and batch (phase 11's), the conic ADMM at these
+# settings (the rest at ConicADMMSettings' defaults); its float32 floor is
+# about 2e-4 (tests/test_f32.py:105-109)
+CONIC_ADMM_SETTINGS = dict(eps_abs=1e-3, eps_rel=1e-3, max_iter=20000)
+B_CONIC_ADMM = 1024
+# examples/logistic_and_sdp.py: 20 samples, 4 features, lambda 0.1; PSD s=5
+LOGISTIC_SAMPLES = 20
+LOGISTIC_FEATURES = 4
+LOGISTIC_LAMBDA = 0.1
+N_ORACLE_LOGISTIC = 32
+# the logistic batch also runs at this eps, where adaptive rho no longer
+# stops it early (ROADMAP.md A6), against the oracle
+LOGISTIC_TIGHT_EPS = 3e-5
+# worker processes of the logistic oracle (the card's host has 8 cores; one
+# is left to the process that drives the card)
+ORACLE_WORKERS = 6
+SDP_S = 5
+
+
+def logistic_problem(ct):
+    """examples/logistic_and_sdp.py's logistic regression family."""
+    w = ct.Variable(LOGISTIC_FEATURES, name='w')
+    Z = ct.Parameter((LOGISTIC_SAMPLES, LOGISTIC_FEATURES), name='Z')
+    return ct.Problem(ct.Minimize(
+        ct.sum(ct.logistic(Z @ w))
+        + LOGISTIC_LAMBDA * ct.sum_squares(w))), Z
+
+
+def logistic_batch(fam, prob, Z, B):
+    """B datasets drawn as in examples/logistic_and_sdp.py (rows of Z are
+    -y_i x_i), from default_rng(0)."""
+    rng = np.random.default_rng(0)
+    thetas = []
+    for _ in range(B):
+        X = rng.normal(size=(LOGISTIC_SAMPLES, LOGISTIC_FEATURES))
+        w_true = rng.normal(size=LOGISTIC_FEATURES)
+        y = np.sign(X @ w_true + 0.3 * rng.normal(size=LOGISTIC_SAMPLES))
+        Z.value = -y[:, None] * X
+        thetas.append(fam.pack_theta(params=prob.parameters()))
+    return np.stack(thetas)
+
+
+def sdp_problem(ct):
+    """examples/logistic_and_sdp.py's max-eigenvalue SDP: the smallest t
+    with t I >= A."""
+    t = ct.Variable(name='t')
+    A = ct.Parameter((SDP_S, SDP_S), name='A')
+    return ct.Problem(ct.Minimize(t), [ct.multiply(t, np.eye(SDP_S)) >> A]), A
+
+
+def sdp_batch(fam, prob, A, B):
+    rng = np.random.default_rng(0)
+    thetas, lam = [], []
+    for _ in range(B):
+        M = rng.normal(size=(SDP_S, SDP_S))
+        M = 0.5 * (M + M.T)
+        A.value = M
+        thetas.append(fam.pack_theta(params=prob.parameters()))
+        lam.append(M)
+    lam_max = torch.linalg.eigvalsh(
+        torch.as_tensor(np.stack(lam), dtype=torch.float64)).amax(1)
+    return np.stack(thetas), lam_max.tolist()
+
+
+def _oracle_obj(args):
+    """One float64 oracle objective (a worker process's task)."""
+    from cvxpygen_tpu_torch.solvers.oracle import solve_family_numpy
+    fam, theta, tol = args
+    res, _ = solve_family_numpy(fam, theta, tol=tol)
+    return res.obj + fam.canon_numpy(theta)[2]
+
+
+def oracle_objs_async(pool, fam, theta, k, tol=1e-7):
+    """oracle_objs in worker processes: the NumPy exp-cone oracle takes
+    about 10 s per logistic instance, so the phase's card work overlaps
+    it."""
+    return pool.map(_oracle_obj, [(fam, theta[i], tol) for i in range(k)])
+
+
+def timed_solve(solver, theta, settings, reps):
+    """One warm-up call, then the mean host time of ``reps`` calls."""
+    out = solver.solve_batch(theta, settings=settings)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = solver.solve_batch(theta, settings=settings)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / reps
+
+
+def phase_conic_admm(card, dev='cuda'):
+    """Phase 14: the conic ADMM (SCS route) at full width: entropy, logistic
+    regression and the max-eigenvalue SDP at B=1024, entropy through the
+    default generate_code route, and one exp projection's time.  The
+    logistic oracle's worker processes stop with the phase, failed or
+    not."""
+    pool = ProcessPoolExecutor(
+        ORACLE_WORKERS, mp_context=multiprocessing.get_context('spawn'))
+    try:
+        conic_admm_checks(card, dev, pool)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def conic_admm_checks(card, dev, pool):
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch import cpg
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.ops.cones import _proj_exp_block
+    from cvxpygen_tpu_torch.runtime.solver import (
+        CompiledConicADMMSolver, make_compiled_solver, use_shared_path)
+    from cvxpygen_tpu_torch.solvers.conic_admm import ConicADMMSettings
+    st = ConicADMMSettings(**CONIC_ADMM_SETTINGS)
+
+    # the logistic batch's float64 oracle starts first, in worker processes
+    lprob, Z = logistic_problem(ct)
+    Z.value = np.zeros((LOGISTIC_SAMPLES, LOGISTIC_FEATURES))
+    lfam = canonicalize(lprob)
+    ltheta = logistic_batch(lfam, lprob, Z, B_CONIC_ADMM)
+    t_pool = time.perf_counter()
+    lrefs = oracle_objs_async(pool, lfam, ltheta, N_ORACLE_LOGISTIC)
+
+    # entropy at bench.py's shape (phase 11's batch)
+    eprob, ec = entropy_problem(ct, ENTROPY_N)
+    cs = np.random.default_rng(5).normal(size=(B_CONIC_ADMM, ENTROPY_N))
+    ec.value = cs[0]
+    efam = canonicalize(eprob)
+    etheta = entropy_batch(efam, eprob, cs)
+    lse = list(np.log(np.sum(np.exp(cs), axis=1)))
+    esolver = make_compiled_solver(efam, 'SCS', device=dev)
+    check(isinstance(esolver, CompiledConicADMMSolver)
+          and esolver.jf.maps.dtype == torch.float32
+          and use_shared_path(esolver._pa_mask, etheta, 'auto'),
+          'entropy: the shared conic ADMM in float32')
+    out, dt = timed_solve(esolver, etheta, st, 3)
+    gate_conic(f'entropy n={ENTROPY_N} through the conic ADMM (shared)',
+               out, lse, dt, 'none (torch)', card, maximize=True,
+               phase='phase 14')
+    batch_iters = int(out['iters'].max())
+    out64 = make_compiled_solver(efam, 'SCS', dtype=torch.float64,
+                                 device=dev).solve_batch(etheta, settings=st)
+    err64, _ = parity(-(out64['obj'] + out64['d']).cpu().numpy(), lse)
+    print(f'# phase 14: entropy: the same settings in float64 on the card: '
+          f'max rel {err64:.3e} against logsumexp(c), mean iters '
+          f'{float(out64["iters"].float().mean()):.2f}')
+
+    # one exp projection of the entropy batch (the loop's glue)
+    cone = 3 * efam.n_exp
+    v = torch.as_tensor(np.random.default_rng(7).normal(
+        size=(B_CONIC_ADMM, efam.n_exp, 3)), dtype=torch.float32, device=dev)
+    _proj_exp_block(v)
+    ms, _ = cuda_ms(lambda: _proj_exp_block(v), 10)
+    print(f'# phase 14: one exp projection of the entropy batch '
+          f'({B_CONIC_ADMM} x {efam.n_exp} cones, {cone} rows, 64 bisection '
+          f'trips): {ms:.4f} ms; one per iteration, {batch_iters} iterations '
+          f'per batch: {batch_iters * ms:.1f} of its {1e3 * dt:.1f} ms '
+          f'[{card}]')
+
+    # the default generate_code route picks SCS; the same solve on the CPU
+    # in float64 gives the answer of these settings' stopping rule
+    vals = {}
+    for where in ('cpu', dev):
+        ec.value = cs[0]
+        mod = cpg.generate_code(eprob, code_dir=os.path.join(
+            ROOT, 'build', 'chip_smoke', f'entropy_scs_{where}'), device=where)
+        check(mod._runtime.solver.solver_name == 'CONIC_ADMM'
+              and mod._runtime.requested_solver == 'SCS',
+              f'entropy default route: {mod._runtime.requested_solver}')
+        t0 = time.perf_counter()
+        vals[where] = eprob.solve(method='CPG', **CONIC_ADMM_SETTINGS)
+        t_first = time.perf_counter() - t0
+        it_first = eprob.solver_stats.num_iters
+        check(eprob.status == 'optimal', f'entropy SCS CPG {eprob.status}')
+    val, val64 = vals[dev], vals['cpu']
+    rel = abs(val - val64) / max(1.0, abs(val64))
+    reps, iters = 5, []
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eprob.solve(method='CPG', **CONIC_ADMM_SETTINGS)
+        check(eprob.status == 'optimal', f'entropy SCS CPG {eprob.status}')
+        iters.append(eprob.solver_stats.num_iters)
+    t_steady = (time.perf_counter() - t0) / reps
+    print(f'# phase 14: entropy generate_code (default route SCS) -> '
+          f'solve(method=CPG): optimal, objective {val:.6f}, the CPU '
+          f'float64 run {val64:.6f} (rel {rel:.2e}), logsumexp(c) '
+          f'{lse[0]:.6f} (rel {abs(val - lse[0]) / abs(lse[0]):.2e}, float64 '
+          f'{abs(val64 - lse[0]) / abs(lse[0]):.2e}: ROADMAP.md A6); '
+          f'{1e3 * t_first:.2f} ms first call ({it_first} iters), '
+          f'{1e3 * t_steady:.2f} ms mean of the next {reps} with warm start '
+          f'(iters {iters}) [{card}]')
+    check(rel <= PARITY_BAR, f'entropy SCS CPG against float64 rel {rel:.3e}')
+
+    # the max-eigenvalue SDP: A enters only b, so the shared engine
+    sprob, A = sdp_problem(ct)
+    A.value = np.eye(SDP_S)
+    sfam = canonicalize(sprob)
+    stheta, lam = sdp_batch(sfam, sprob, A, B_CONIC_ADMM)
+    ssolver = make_compiled_solver(sfam, 'SCS', device=dev)
+    out, dt = timed_solve(ssolver, stheta, st, 1)
+    gate_conic(f'max-eigenvalue SDP s={SDP_S} (PSD svec '
+               f'{sfam.psd_dims}; shared '
+               f'{use_shared_path(ssolver._pa_mask, stheta, "auto")}; '
+               'against eigvalsh in float64)', out, lam, dt, 'none (torch)',
+               card, phase='phase 14')
+
+    # logistic regression: Z per instance, so the per-instance engine.  At
+    # eps 1e-3 adaptive rho stops it up to 7e-2 from the optimum in float32
+    # and float64 alike (ROADMAP.md A6): that run is held to the float64 run
+    # of the same settings, and the run at LOGISTIC_TIGHT_EPS to the oracle
+    lsolver = make_compiled_solver(lfam, 'SCS', device=dev)
+    check(not use_shared_path(lsolver._pa_mask, ltheta, 'auto'),
+          'logistic: the batch should take the per-instance engine')
+    out, dt = timed_solve(lsolver, ltheta, st, 1)
+    out64 = make_compiled_solver(lfam, 'SCS', dtype=torch.float64,
+                                 device=dev).solve_batch(ltheta, settings=st)
+    tight = dataclasses.replace(st, eps_abs=LOGISTIC_TIGHT_EPS,
+                                eps_rel=LOGISTIC_TIGHT_EPS)
+    t0 = time.perf_counter()
+    out_t = lsolver.solve_batch(ltheta, settings=tight)
+    torch.cuda.synchronize()
+    dt_t = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lrefs = list(lrefs)
+    print(f'# phase 14: float64 oracle on {N_ORACLE_LOGISTIC} logistic '
+          f'instances: {time.perf_counter() - t_pool:.1f} s in '
+          f'{ORACLE_WORKERS} processes, {time.perf_counter() - t0:.1f} s '
+          f'waited for after the batches [{card}]')
+    obj = (out['obj'] + out['d']).double().cpu().numpy()
+    obj64 = (out64['obj'] + out64['d']).cpu().numpy()
+    err_o, _ = parity(obj, lrefs)
+    err_o64, _ = parity(obj64, lrefs)
+    gate_conic(f'logistic regression (n={lfam.n}, m={lfam.m}, '
+               f'{lfam.n_exp} exp cones; per-instance) at eps 1e-3 against '
+               f'its float64 run (the oracle: max rel {err_o:.3e}, float64 '
+               f'{err_o64:.3e}; ROADMAP.md A6)', out, list(obj64), dt,
+               'none (torch)', card, phase='phase 14')
+    gate_conic(f'logistic regression at eps {LOGISTIC_TIGHT_EPS:g} (one '
+               'call) against the oracle', out_t, lrefs, dt_t,
+               'none (torch)', card, phase='phase 14')
+
+
+# ---------------------------------------------------------------------------
+# phase 15: differentiation (TorchLayer with K1 forward; gradient=True)
+# ---------------------------------------------------------------------------
+
+B_LAYER = 256
+# the layer's output U and dtheta of the K1 forward against the torch
+# loop's, each relative to max(1, its inf-norm) per instance: both
+# forwards stop at eps 1e-3 (float32 Newton-Schulz inverses of their own),
+# and on an H100 they differ by 1.4e-4 in U and 2.8e-4 in dtheta
+LAYER_TOL = 1e-3
+GRAD_TOL = 1e-2
+
+
+def layer_inputs(prob, dev, B):
+    """The MPC parameters as tensors: x_init batched (B, 6), requiring
+    grad, the others unbatched."""
+    params = list(prob.parameters())
+    tensors = []
+    for p in params:
+        if p.name() == 'x_init':
+            tensors.append(torch.as_tensor(
+                x_init_batch_values(B), dtype=torch.float32,
+                device=dev).requires_grad_())
+        else:
+            tensors.append(torch.as_tensor(p.value, dtype=torch.float32,
+                                           device=dev))
+    return params, tensors
+
+
+def x_init_batch_values(B, seed=0):
+    return np.random.default_rng(seed).uniform(-2.0, 2.0, (B, 6))
+
+
+def active_sets(solver, theta, st):
+    """The backward's active set of each instance (autodiff/qp_diff.py's
+    rule: a multiplier or a slack beyond ACT_EPS, lower and upper), with
+    each row's multiplier and slack, from the same forward solve."""
+    from cvxpygen_tpu_torch.autodiff.qp_diff import ACT_EPS
+    from cvxpygen_tpu_torch.runtime.torch_family import (canon_batch_shared,
+                                                        qp_bounds_batch)
+    out = solver.solve_batch(theta, settings=st)
+    l, u = qp_bounds_batch(solver.jf, canon_batch_shared(solver.jf,
+                                                         theta)['b'])
+    y, z = out['y'], out['z']
+    slack = torch.cat([torch.abs(z - l), torch.abs(z - u)], dim=1)
+    act = torch.cat([y < -ACT_EPS, y > ACT_EPS], dim=1) | (slack < ACT_EPS)
+    return act, torch.abs(torch.cat([y, y], dim=1)), slack
+
+
+def layer_run(layer, tensors, w, card, label):
+    """Forward and backward of the layer; returns the output u, dtheta and
+    both times.  The loss w.u + |u|^2 / 2 makes the upstream gradient (w +
+    u) read the forward's values, so dtheta depends on them and not only
+    on the active set."""
+    tensors = [t.detach().requires_grad_(t.requires_grad) for t in tensors]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (u,) = layer(*tensors)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ((u * w).sum() + 0.5 * (u * u).sum()).backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grad = [t.grad for t in tensors if t.requires_grad][0]
+    check(bool(torch.isfinite(grad).all()) and bool(torch.isfinite(u).all()),
+          f'{label}: non-finite layer output or gradient')
+    return u.detach(), grad, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+
+
+def phase_diff(card, dev='cuda'):
+    """Phase 15: TorchLayer on MPC H=10 at B=256 (K1 forward) against the
+    torch loop's forward, then generate_code(gradient=True) ->
+    cpg_gradient against the CPU float64 run.  Returns K1's launches."""
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch import cpg
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.ops import admm_shared_kernel as k1
+    from cvxpygen_tpu_torch.runtime.solver import CompiledQPSolver
+    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+
+    prob = assign_mpc(mpc_problem(ct))
+    fam = canonicalize(prob)
+    U = [v for v in prob.variables() if v.name() == 'U'][0]
+    params, tensors = layer_inputs(prob, dev, B_LAYER)
+    st_auto = ADMMSettings(**BENCH_SETTINGS)
+    st_never = dataclasses.replace(st_auto, use_pallas='never')
+    check(k1.pick_shared_chunk(B_LAYER, fam.m, fam.n) is not None,
+          'no rho group at the layer batch')
+    w = torch.as_tensor(np.random.default_rng(3).normal(size=U.shape),
+                        dtype=torch.float32, device=dev)
+    layer = ct.TorchLayer(prob, parameters=params, variables=[U],
+                          settings=st_auto, device=dev)
+    ref_layer = ct.TorchLayer(prob, parameters=params, variables=[U],
+                              settings=st_never, device=dev)
+    layer_run(layer, tensors, w, card, 'warm-up')
+    k1.admm_shared_solve.launches = 0
+    u, grad, fwd_ms, bwd_ms = layer_run(layer, tensors, w, card,
+                                        'K1 forward')
+    launches = k1.admm_shared_solve.launches
+    check(launches > 0, 'the layer forward did not launch K1')
+    k1.admm_shared_solve.launches = 0
+    ref_u, ref_grad, ref_fwd, ref_bwd = layer_run(
+        ref_layer, tensors, w, card, 'torch-loop forward')
+    check(k1.admm_shared_solve.launches == 0,
+          "use_pallas='never' launched K1")
+    # the instances whose active sets agree between the two forwards
+    base = fam.pack_theta(params=prob.parameters())
+    xi = [pi for pi in fam.param_info if pi.name == 'x_init'][0]
+    theta = np.tile(base, (B_LAYER, 1))
+    theta[:, xi.offset:xi.offset + xi.flat_size] = \
+        x_init_batch_values(B_LAYER)
+    solver = CompiledQPSolver(fam, settings=st_auto, device=dev)
+    act_a, y_a, slack_a = active_sets(solver, theta, st_auto)
+    act_n, y_n, slack_n = active_sets(solver, theta, st_never)
+    differ = act_a != act_n
+    n_diff = int(differ.any(dim=1).sum())
+    y_diff = float(torch.where(differ, torch.maximum(y_a, y_n), 0.0).max())
+    slack_diff = float(torch.where(differ, torch.minimum(slack_a, slack_n),
+                                   0.0).max())
+    u_scale = torch.clamp(ref_u.abs().flatten(1).amax(dim=1), min=1.0)
+    u_err = float(((u - ref_u).abs().flatten(1).amax(dim=1)
+                   / u_scale).max())
+    scale = torch.clamp(ref_grad.abs().amax(dim=1), min=1.0)
+    err = (grad - ref_grad).abs().amax(dim=1) / scale
+    max_err = float(err.max())
+    print(f'# phase 15: TorchLayer MPC H=10 (n={fam.n}, m={fam.m}), '
+          f'B={B_LAYER}: forward {fwd_ms:.3f} ms (K1 launches {launches}), '
+          f'backward {bwd_ms:.3f} ms; torch-loop forward {ref_fwd:.3f} ms, '
+          f'backward {ref_bwd:.3f} ms [{card}]')
+    print(f'# phase 15: active sets differ on {n_diff} of {B_LAYER} '
+          f'instances (on rows with |y| <= {y_diff:.2e} and a slack within '
+          f'{slack_diff:.2e} of the bound in the two forwards: ROADMAP.md '
+          f'A7); over every instance: U max rel {u_err:.3e}, dtheta max '
+          f'rel {max_err:.3e}')
+    # the float32 forwards put a row's multiplier or slack on either side
+    # of ACT_EPS by roundoff (A7), so U and dtheta are held on every
+    # instance
+    check(u_err <= LAYER_TOL, f'layer output U rel {u_err:.3e}')
+    check(max_err <= LAYER_TOL, f'layer dtheta rel {max_err:.3e}')
+
+    # generate_code(gradient=True) -> cpg_gradient on the card and on the
+    # CPU in float64 (tests/test_codegen.py::test_gradient_package)
+    grads = {}
+    for where, eps in ((dev, 1e-5), ('cpu', 1e-9)):
+        m_, n_ = 6, 4
+        x = ct.Variable(n_, name='x', nonneg=True)
+        A = ct.Parameter((m_, n_), name='A')
+        b = ct.Parameter(m_, name='b')
+        gprob = ct.Problem(ct.Minimize(ct.sum_squares(A @ x - b)))
+        np.random.seed(0)
+        A.value = np.random.randn(m_, n_)
+        b.value = np.random.randn(m_)
+        mod = cpg.generate_code(
+            gprob, code_dir=os.path.join(ROOT, 'build', 'chip_smoke',
+                                         f'grad_code_{where}'),
+            solver='OSQP', gradient=True, device=where)
+        gprob.solve(method='CPG', eps_abs=eps, eps_rel=eps, max_iter=20000)
+        x.gradient = 0.1 * np.ones(n_)
+        grads[where] = mod.cpg_gradient(gprob)
+    g_dev = np.concatenate([np.ravel(grads[dev][k]) for k in ('A', 'b')])
+    g_cpu = np.concatenate([np.ravel(grads['cpu'][k]) for k in ('A', 'b')])
+    rel = float(np.max(np.abs(g_dev - g_cpu))
+                / max(1.0, np.max(np.abs(g_cpu))))
+    print(f'# phase 15: generate_code(gradient=True) -> cpg_gradient on the '
+          f'card against the CPU float64 run: max rel {rel:.3e}')
+    check(bool(np.all(np.isfinite(g_dev))), 'non-finite cpg_gradient')
+    check(rel <= GRAD_TOL, f'cpg_gradient rel {rel:.3e}')
+    return launches
+
+
 def adp_problem(ct, n=6, m=3):
     """The ADP family of tests/problems.py:190-204 (reference
     tests/test_E2E_SOCP.py:14-35) in the port's modeling layer."""
@@ -3339,6 +3780,9 @@ def main():
     ldl_numbers, ldl_launches, fused_numbers, fused_launches = \
         phase_conic(card)
     k11_numbers, k11_launches = phase_iterate(card)
+    phase_conic_admm(card)
+    # the layer's K1 launches join the shared main path's (phase 3)
+    k1_launches += phase_diff(card)
     kernels = [
         dict(name='admm_shared_solve', route='cuda',
              source='cvxpygen_tpu_torch/csrc/admm_shared.cu',

@@ -11,7 +11,9 @@ the reference it is held against.  Same layout and module names:
   it; solvers/ and ops/ hold the torch solvers and the CUDA kernels
   (csrc/), each kernel beside its plain torch version;
 - cpg.generate_code provides the reference's public API
-  (reference cvxpygen/cpg.py:17-30).
+  (reference cvxpygen/cpg.py:17-30);
+- autodiff/ holds the differentiable QP solve and ``TorchLayer``, a
+  cvxpylayers-style layer over it.
 
 Entry points run on CUDA unless the caller passes ``device='cpu'``; with
 no card and no explicit device they raise.
@@ -27,10 +29,11 @@ from .atoms import (
     norm, norm1, norm2, norm_inf, pos, power, quad_form, quad_over_lin,
     rel_entr, reshape, sqrt, square, sum, sum_squares, trace, vec,
 )
+from .autodiff.torch_layer import TorchLayer
 
 __all__ = [
     'Variable', 'Parameter', 'Constant', 'Problem', 'Minimize', 'Maximize',
-    'SOC', 'ExpCone', 'PSD', 'PowCone3D', 'abs', 'diff', 'entr', 'exp',
+    'SOC', 'ExpCone', 'PSD', 'PowCone3D', 'TorchLayer', 'abs', 'diff', 'entr', 'exp',
     'geo_mean',
     'huber', 'inv_pos', 'kl_div', 'lambda_max', 'lambda_min', 'log',
     'log_det', 'log_sum_exp',

@@ -1,13 +1,19 @@
-"""Runtime object behind generated solver packages (ADMM and IPM engines).
+"""Runtime object behind generated solver packages (ADMM, conic ADMM and
+IPM engines).
 
 Port of the JAX package's ``codegen/runtime.py`` ``CpgRuntime``: it plays
 the role of the reference's compiled pybind module + python wrapper
 (reference templates/cpg_solver.py.jinja2:38-213).  It holds the compiled
 family, caches theta between calls honouring ``updated_params``, resolves
 runtime settings through the registry, and warm-starts from the previous
-solution where the engine takes one (the ADMM engine; as in the
-reference, the IPM is not warm-started).  Gradients (``gradient=True``) and
-the explicit runtime arrive with later slices of the port.
+solution where the engine takes one (the ADMM engines, the conic ADMM
+included; as in the reference, the IPM is not warm-started).  With
+``gradient=True`` a QP-form package differentiates its last solve
+(``cpg_gradient``/``backward``: autodiff/qp_diff.py's implicit
+differentiation on the host in float64, as the reference's host branch);
+cone families and the interior-point engine raise until the conic
+differentiation is ported.  The explicit runtime arrives with a
+later slice of the port.
 """
 from __future__ import annotations
 
@@ -17,15 +23,19 @@ import time
 import warnings
 
 import numpy as np
+import torch
 
+from ..autodiff.qp_diff import qp_vjp
 from ..canon.canonicalizer import Family, retrieve_duals, retrieve_primal
 from ..problem import SolverStats
 from ..runtime.solver import _status_str, make_compiled_solver
+from ..runtime.torch_family import TorchFamily, canon_batch, qp_bounds_batch
 from ..solvers.registry import engine_registry
 
-_NO_GRADIENT = ('gradient=True needs the QP differentiation '
-                '(autodiff/qp_diff.py), which is not ported yet: ROADMAP.md '
-                'queue 1 item 6')
+_NO_GRADIENT = ('gradient=True on a cone family or a conic engine needs the '
+                'conic differentiation (autodiff/conic_diff.py), which is '
+                'not ported yet: ROADMAP.md queue 1 item 6')
+_GRADIENT_ENGINES = ('ADMM', 'ADMM_BANDED')
 
 
 def _pack_theta_cached(fam, prob, updated_params, cached):
@@ -50,14 +60,14 @@ class CpgRuntime:
     def __init__(self, family: Family, solver_name='ADMM', prefix='',
                  gradient=False, enable_settings=None, dtype=None,
                  solver_opts=None, device=None):
-        if gradient:
-            raise NotImplementedError(_NO_GRADIENT)
         self.family = family
         self.prefix = prefix
         self.gradient_enabled = gradient
         self.enable_settings = enable_settings or []
         self.solver = make_compiled_solver(family, solver_name, dtype=dtype,
                                            device=device)
+        if gradient and self.solver.solver_name not in _GRADIENT_ENGINES:
+            raise NotImplementedError(_NO_GRADIENT)
         # the banded engine takes the ADMM settings
         self._registry, self._aliases = engine_registry(
             self.solver.solver_name)
@@ -77,6 +87,7 @@ class CpgRuntime:
         self.requested_solver = solver_name
         self._theta = None
         self._ctx = None
+        self._grad_tf = None
         # warm-start state persisted across cpg_solve calls, for engines
         # whose solve_batch takes one (parity: reference OSQP
         # warm_starting default-ON, osqp.py:102-115)
@@ -165,8 +176,51 @@ class CpgRuntime:
                   f'(solve time {1000 * solve_time:.2f} ms)')
         return prob.unpack_results(status, obj, primal, duals, stats)
 
+    # -- gradients (gradient=True) ---------------------------------------
     def cpg_gradient(self, prob):
-        raise NotImplementedError(_NO_GRADIENT)
+        """Read var.gradient seeds, write param.gradient (reference
+        cpg_solver.py.jinja2:133-173)."""
+        if not self.gradient_enabled:
+            raise RuntimeError('generate_code was called without '
+                               'gradient=True')
+        if self._ctx is None:
+            raise RuntimeError('solve before calling cpg_gradient')
+        fam = self.family
+        gx = np.zeros(fam.n)
+        for vi in fam.user_vars:
+            var = [v for v in prob.variables() if v.id == vi.vid]
+            if var and var[0].gradient is not None:
+                gx[vi.offset:vi.offset + vi.size] = np.ravel(
+                    np.asarray(var[0].gradient, dtype=float), order='F')
+        grads = fam.unpack_theta_grad(self._grad_theta(gx))
+        for p in prob.parameters():
+            if p.name() in grads:
+                p.gradient = grads[p.name()]
+        return grads
+
+    def _grad_theta(self, gx):
+        """Implicit differentiation of the last QP solve on the host in
+        float64 (the reference's QP branch, its grad template
+        cpg_osqp_grad_compute.c.jinja2:432-531): autodiff/qp_diff.py's
+        ``qp_vjp`` at B = 1 on a float64 CPU copy of the family."""
+        if self._grad_tf is None:
+            self._grad_tf = TorchFamily.from_family(
+                self.family, dtype=torch.float64, device='cpu')
+        tf = self._grad_tf
+        theta = torch.as_tensor(self._ctx['theta'],
+                                dtype=torch.float64)[None]
+        data = canon_batch(tf, theta)
+        l, u = qp_bounds_batch(tf, data['b'])
+        out = self._ctx['out']
+
+        def row(key):
+            return torch.as_tensor(np.asarray(out[key][0],
+                                              dtype=np.float64))[None]
+        zeros = torch.zeros((1, self.family.m), dtype=torch.float64)
+        return qp_vjp(tf, theta, row('x'), -row('y_canon'), row('z'),
+                      data['P'], data['q'], data['A'], l, u,
+                      torch.as_tensor(gx, dtype=torch.float64)[None], zeros,
+                      zeros[:, 0])[0].numpy()
 
     # -- cvxpylayers-style forward/backward ------------------------------
     def forward(self, prob, updated_params=None, **kwargs):

@@ -12,10 +12,12 @@ The artifact is the pickled Family (the parametric canonicalization maps --
 the reference's cpg_workspace.c as arrays); the torch solve path is built
 when the package is imported.  The port generates ADMM packages for
 QP-form families (dense, or block-banded with ``solver='BANDED'``, which
-ADMM also picks for banded families with n >= 512) and interior-point
-packages (``'IPM'`` and the reference's ECOS/CLARABEL/QOCO aliases) for any
-family; the embedded-C artifact, the explicit solver, the conic ADMM
-engine (SCS) and gradients arrive with later slices (ROADMAP.md).
+ADMM also picks for banded families with n >= 512; ``gradient=True``
+differentiates them), conic ADMM packages (``'SCS'``/``'CONIC_ADMM'``, the
+default for exp/PSD/pow families) and interior-point packages (``'IPM'``
+and the reference's ECOS/CLARABEL/QOCO aliases) for any family; the
+embedded-C artifact, the explicit solver and the gradients of cone
+families arrive with later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import pickle
 import sys
 
 from .canon.canonicalizer import canonicalize
-from .runtime.solver import IPM_SOLVERS
+from .runtime.solver import CONIC_ADMM_SOLVERS, IPM_SOLVERS
 
 _QP_SOLVERS = ('ADMM', 'OSQP', 'BANDED', 'ADMM_BANDED')
 
@@ -60,16 +62,14 @@ def generate_code(problem, code_dir='cpg_code', solver=None, solver_opts=None,
     if solver.lower() == 'explicit':
         raise NotImplementedError('the explicit solver is not ported yet: '
                                   'ROADMAP.md queue 1 item 10')
-    if solver.upper() in ('SCS', 'CONIC_ADMM'):
-        raise NotImplementedError('the conic ADMM engine (SCS) is not '
-                                  'ported yet: ROADMAP.md queue 1 item 8')
-    if solver.upper() not in _QP_SOLVERS + IPM_SOLVERS:
+    if solver.upper() not in _QP_SOLVERS + CONIC_ADMM_SOLVERS + IPM_SOLVERS:
         raise ValueError(f'unsupported solver {solver!r}')
     if has_cones and solver.upper() in _QP_SOLVERS:
         raise ValueError(f'{solver}: QP-form solver but family has cones')
-    if gradient:
+    if gradient and solver.upper() not in _QP_SOLVERS:
         raise NotImplementedError(
-            'gradient=True needs the QP differentiation, which is not '
+            'gradient=True on a cone family or a conic engine needs the '
+            'conic differentiation (autodiff/conic_diff.py), which is not '
             'ported yet: ROADMAP.md queue 1 item 6')
 
     os.makedirs(code_dir, exist_ok=True)

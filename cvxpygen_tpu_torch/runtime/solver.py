@@ -6,9 +6,9 @@ families run the ADMM engine, through the shared-KKT branch (every batch
 row shares the canonical P and A) or the per-instance branch, on dense
 storage (``CompiledQPSolver``) or, for long-horizon families, on
 block-banded storage (``CompiledBandedQPSolver``); conic families run the
-interior-point engine (``CompiledConicSolver``).  The conic ADMM engine
-(SCS) raises ``NotImplementedError`` naming the ROADMAP.md queue-1 item
-that ports it.
+interior-point engine (``CompiledConicSolver``) or the conic ADMM
+(``CompiledConicADMMSolver``, the SCS route and the default for exp, PSD
+and pow families).
 """
 from __future__ import annotations
 
@@ -19,9 +19,12 @@ import numpy as np
 import torch
 
 from ..canon.canonicalizer import Family, retrieve_duals, retrieve_primal
+from ..ops.cones import ConeLayout
 from ..problem import SolverStats
 from ..solvers.admm import ADMMSettings, admm_solve
 from ..solvers.admm_shared import admm_solve_shared
+from ..solvers.conic_admm import ConicADMMSettings, conic_admm_solve
+from ..solvers.conic_admm_shared import conic_admm_solve_shared
 from ..solvers.ipm import IPMSettings, ipm_solve
 from .torch_family import (TorchFamily, canon_batch, canon_batch_shared,
                            canon_batch_sparse, qp_bounds_batch,
@@ -262,15 +265,58 @@ class CompiledConicSolver:
             retrieve_duals(fam, out['y_canon'][0]), stats)
 
 
+class CompiledConicADMMSolver:
+    """Conic-ADMM-backed compiled family solver (SCS role; the default
+    engine for exp/PSD/pow families).  A batch that shares the canonical P
+    and A (``shared_PA`` as in CompiledQPSolver) takes the shared engine
+    (solvers/conic_admm_shared.py: one M^-1 for the batch), others the
+    per-instance one (solvers/conic_admm.py).  Canonical dual convention:
+    y_canon = -y.  Runs on CUDA unless ``device`` says otherwise."""
+
+    solver_name = 'CONIC_ADMM'
+
+    def __init__(self, family: Family, settings=None, dtype=None,
+                 device=None):
+        self.family = family
+        self.settings = settings or ConicADMMSettings()
+        self.device = resolve_device(device)
+        self.jf = TorchFamily.from_family(family, dtype=dtype,
+                                          device=self.device)
+        self.layout = ConeLayout(
+            n_nonneg=family.n_nonneg, socs=tuple(family.soc_dims),
+            n_exp=family.n_exp, psds=tuple(family.psd_dims or ()),
+            pows=tuple(family.pow_alphas or ()))
+        self._pa_mask = pa_theta_mask(family)
+
+    def solve_batch(self, theta, settings=None, x0=None, y0=None,
+                    shared_PA='auto'):
+        """Batched conic solve of theta (B, p), warm-started from x0/y0
+        (canonical x and OSQP-sign y) when given."""
+        st = settings or self.settings
+        jf = self.jf
+        if use_shared_path(self._pa_mask, theta, shared_PA):
+            data = canon_batch_shared(jf, theta)
+            solve = conic_admm_solve_shared
+        else:
+            data = canon_batch(jf, theta)
+            solve = conic_admm_solve
+        res = solve(data['P'], data['q'], data['A'], data['b'], jf.n_zero,
+                    self.layout, st, x0=x0, y0=y0)
+        res['d'] = data['d']
+        res['y_canon'] = -res['y']
+        return res
+
+
 IPM_SOLVERS = ('IPM', 'ECOS', 'CLARABEL', 'QOCO', 'QOCOGEN')
+CONIC_ADMM_SOLVERS = ('SCS', 'CONIC_ADMM')
 
 
 def make_compiled_solver(family: Family, solver='ADMM', settings=None,
                          dtype=None, device=None):
     """Resolve a solver name to a compiled solver: ADMM / OSQP, BANDED /
-    ADMM_BANDED for the block-banded engine, and IPM / ECOS / CLARABEL /
-    QOCO / QOCOGEN for the interior-point engine (which covers the full
-    Clarabel cone list).  ADMM on a family with n >= 512 takes the banded
+    ADMM_BANDED for the block-banded engine, SCS / CONIC_ADMM for the conic
+    ADMM, and IPM / ECOS / CLARABEL / QOCO / QOCOGEN for the interior-point
+    engine (both conic engines cover the full Clarabel cone list).  ADMM on a family with n >= 512 takes the banded
     solver when the KKT pattern is banded, and the dense one otherwise."""
     name = (solver or 'ADMM').upper()
     has_cones = bool(family.soc_dims or getattr(family, 'n_exp', 0)
@@ -294,9 +340,9 @@ def make_compiled_solver(family: Family, solver='ADMM', settings=None,
                 pass
         return CompiledQPSolver(family, settings=settings, dtype=dtype,
                                 device=device)
-    if name in ('SCS', 'CONIC_ADMM'):
-        raise NotImplementedError('conic ADMM is not ported yet: ROADMAP.md '
-                                  'queue 1 item 8')
+    if name in CONIC_ADMM_SOLVERS:
+        return CompiledConicADMMSolver(family, settings=settings, dtype=dtype,
+                                       device=device)
     if name in IPM_SOLVERS:
         return CompiledConicSolver(family, settings=settings, dtype=dtype,
                                    device=device)

@@ -4,9 +4,9 @@ plumbing).
 The reference declares, per solver, a registry of ``Setting(type, default,
 enabled, name_cvxpy)`` (reference cvxpygen/mappings.py:140-145; osqp.py:
 102-115), warns on unknown settings (_interface.py:125-130) and translates
-CVXPY-style names (_interface.py:197-199).  The port carries the ADMM engine (with its
-banded variant) and the interior-point engine; the conic ADMM and explicit
-engines arrive with their solvers.
+CVXPY-style names (_interface.py:197-199).  The port carries the ADMM engine
+(with its banded variant), the conic ADMM (SCS) and the interior-point
+engine; the explicit engine arrives with its solver.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from dataclasses import dataclass, fields
 from typing import Any, Dict, Optional
 
 from .admm import ADMMSettings
+from .conic_admm import ConicADMMSettings
 from .ipm import IPMSettings
 
 
@@ -39,13 +40,22 @@ def _registry_from_dataclass(cls, cvxpy_names=None):
 ADMM_SETTINGS: Dict[str, Setting] = _registry_from_dataclass(
     ADMMSettings, cvxpy_names={'warm_starting': 'warm_start'})
 IPM_SETTINGS: Dict[str, Setting] = _registry_from_dataclass(IPMSettings)
+CONIC_ADMM_SETTINGS: Dict[str, Setting] = _registry_from_dataclass(
+    ConicADMMSettings, cvxpy_names={'warm_starting': 'warm_start',
+                                    'max_iter': 'max_iters'})
 # gated behind generate_code(..., enable_settings=['verbose'])
-for _reg in (ADMM_SETTINGS, IPM_SETTINGS):
+for _reg in (ADMM_SETTINGS, IPM_SETTINGS, CONIC_ADMM_SETTINGS):
     _reg['verbose'] = Setting('bool', False, enabled=False)
 
 # reference/CVXPY-style names -> engine setting names
 ADMM_ALIASES: Dict[str, str] = {
     'warm_start': 'warm_starting',
+}
+# the SCS surface
+CONIC_ADMM_ALIASES: Dict[str, str] = {
+    'warm_start': 'warm_starting',
+    'max_iters': 'max_iter',
+    'eps': 'eps_abs',
 }
 # the reference solver surfaces: ECOS feastol/abstol/reltol/maxit, Clarabel
 # tol_*/equilibrate_*/iterative_refinement_* (clarabel.py:63-119), QOCO
@@ -64,6 +74,8 @@ IPM_ALIASES: Dict[str, str] = {
 _ENGINES = {
     'ADMM': (ADMM_SETTINGS, ADMM_ALIASES),
     'IPM': (IPM_SETTINGS, IPM_ALIASES),
+    'CONIC_ADMM': (CONIC_ADMM_SETTINGS, CONIC_ADMM_ALIASES),
+    'SCS': (CONIC_ADMM_SETTINGS, CONIC_ADMM_ALIASES),
 }
 
 

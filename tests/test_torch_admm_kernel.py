@@ -7,6 +7,7 @@ import pytest
 import torch
 from threadpoolctl import threadpool_limits
 
+import jax
 import jax.numpy as jnp
 
 from test_full_kernel import _random_qp_batch
@@ -91,8 +92,11 @@ def test_k3_route_matches_loop_without_refinement():
     kw = dict(eps_abs=1e-6, eps_rel=1e-6, max_iter=4000, check_interval=20,
               kkt_solver='ns', ns_iters=40, kkt_refine=0, adaptive_rho=True,
               adaptive_rho_tolerance=1.5)
-    ref = admm_ref.admm_solve(*(jnp.asarray(v) for v in arrs), n_eq,
-                              admm_ref.ADMMSettings(use_pallas='never', **kw))
+    # the reference under jax.jit: called eagerly, JAX compiles each
+    # operation of its Ruiz and Newton-Schulz loops one by one
+    ref = jax.jit(admm_ref.admm_solve, static_argnums=(5, 6))(
+        *(jnp.asarray(v) for v in arrs), n_eq,
+        admm_ref.ADMMSettings(use_pallas='never', **kw))
     out = admm.admm_solve(*(torch.tensor(v) for v in arrs), n_eq,
                           admm.ADMMSettings(use_pallas='always', **kw))
     assert np.all(out['solved'].numpy())

@@ -2,6 +2,8 @@
 (cvxpygen_tpu_torch) against the JAX package: its XLA loop, and its Pallas
 kernel ops/admm_shared_kernel.py run in interpret mode.  float64 on the CPU,
 the same inputs made with numpy for both."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -67,6 +69,15 @@ def _settings(pkg, **kw):
     return pkg.ADMMSettings(**base)
 
 
+@functools.lru_cache(maxsize=None)
+def _reference(B, **kw):
+    """The JAX package's shared solve of _batch(B) at these settings,
+    computed once for the module (several tests hold the port to the same
+    one)."""
+    ref_in, _, n_eq = _batch(B=B)
+    return admm_solve_shared_ref(*ref_in, n_eq, _settings(admm_ref, **kw))
+
+
 @pytest.mark.parametrize('adaptive', [False, True])
 @pytest.mark.parametrize('kkt', ['inv', 'chol', 'ns'])
 def test_loop_matches_reference(kkt, adaptive):
@@ -92,11 +103,11 @@ def test_adaptive_settings_refactor():
 def test_kernel_plain_matches_interpret_kernel(adaptive):
     """K1's plain version behind admm_solve_shared against the JAX
     package's full_interpret path, which picks chunk = B there."""
-    ref_in, port_in, n_eq = _batch(B=32)
+    _, port_in, n_eq = _batch(B=32)
     assert pick_shared_chunk_ref(32, 18, 12) == 32
     kw = dict(kkt_solver='ns', use_pallas='full_interpret', max_iter=4000,
               check_interval=20, adaptive_rho=adaptive)
-    ref = admm_solve_shared_ref(*ref_in, n_eq, _settings(admm_ref, **kw))
+    ref = _reference(32, **kw)
     out = admm_solve_shared(*port_in, n_eq, _settings(admm, **kw), chunk=32)
     assert np.all(out['solved'].numpy())
     _assert_same(ref, out, atol=1e-9)
@@ -272,7 +283,7 @@ def test_chunk_rule_matches_reference(B, shape):
 def test_default_route_matches_reference(B, kernel):
     """No chunk given: at B=32 both packages run the kernel at chunk 32 (its
     plain version here, interpret mode there), at B=6 both run the loop."""
-    ref_in, port_in, n_eq = _batch(B=B)
+    _, port_in, n_eq = _batch(B=B)
     kw = dict(kkt_solver='ns', use_pallas='full_interpret', max_iter=4000,
               check_interval=20, adaptive_rho=True)
     st = _settings(admm, **kw)
@@ -280,7 +291,7 @@ def test_default_route_matches_reference(B, kernel):
                       torch.device('cpu')) is kernel
     assert (pick_shared_chunk_ref(B, 18, 12, jnp.float64)
             is not None) is kernel
-    ref = admm_solve_shared_ref(*ref_in, n_eq, _settings(admm_ref, **kw))
+    ref = _reference(B, **kw)
     out = admm_solve_shared(*port_in, n_eq, st)
     assert np.all(out['solved'].numpy())
     _assert_same(ref, out, atol=1e-9 if kernel else 1e-8)

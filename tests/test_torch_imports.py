@@ -9,7 +9,10 @@ import sys
 
 import cvxpygen_tpu_torch
 from cvxpygen_tpu.solvers.admm import ADMMSettings as SettingsRef
+from cvxpygen_tpu.solvers.conic_admm import \
+    ConicADMMSettings as ConicSettingsRef
 from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+from cvxpygen_tpu_torch.solvers.conic_admm import ConicADMMSettings
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.dirname(os.path.abspath(cvxpygen_tpu_torch.__file__))
@@ -62,6 +65,12 @@ def test_import_leaves_jax_unloaded():
             'cvxpygen_tpu_torch.solvers.ipm_cones, '
             'cvxpygen_tpu_torch.solvers.ipm_hsde, '
             'cvxpygen_tpu_torch.solvers.registry, '
+            'cvxpygen_tpu_torch.ops.cones, '
+            'cvxpygen_tpu_torch.solvers.conic_admm, '
+            'cvxpygen_tpu_torch.solvers.conic_admm_shared, '
+            'cvxpygen_tpu_torch.autodiff, '
+            'cvxpygen_tpu_torch.autodiff.qp_diff, '
+            'cvxpygen_tpu_torch.autodiff.torch_layer, '
             'cvxpygen_tpu_torch.codegen.runtime; '
             'print(sorted(m for m in sys.modules if m == "cvxpygen_tpu" '
             'or m.startswith("cvxpygen_tpu.") or m.split(".")[0] == "jax"))')
@@ -72,7 +81,13 @@ def test_import_leaves_jax_unloaded():
     assert res.stdout.strip() == '[]'
 
 
+def _fields(cls):
+    return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+
 def test_settings_fields_and_defaults_match_reference():
-    ref = [(f.name, f.default) for f in dataclasses.fields(SettingsRef)]
-    port = [(f.name, f.default) for f in dataclasses.fields(ADMMSettings)]
-    assert port == ref
+    assert _fields(ADMMSettings) == _fields(SettingsRef)
+
+
+def test_conic_admm_settings_fields_and_defaults_match_reference():
+    assert _fields(ConicADMMSettings) == _fields(ConicSettingsRef)

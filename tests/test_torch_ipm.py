@@ -1,14 +1,20 @@
 """The port's conic IPM (cvxpygen_tpu_torch/solvers/ipm.py) against the JAX
 package's: the symmetric cone calculus, the NT scaling, the step to the
-boundary and the Ruiz equilibration (JAX functions called eagerly), then
+boundary and the Ruiz equilibration (each JAX function under jax.jit:
+called eagerly, JAX compiles every operation of its loops one by one),
+then
 the slice end to end -- the entropy family through both packages'
-CompiledConicSolver in the 'ldl' KKT mode, float64 (the JAX reference
-compiled once per module)."""
+CompiledConicSolver in the 'ldl' KKT mode and the port's fused K9/K10
+routes (their plain versions), float64 (the JAX reference compiled once
+for all of them)."""
+import functools
+
 import numpy as np
 import pytest
 import torch
 from threadpoolctl import threadpool_limits
 
+import jax
 import jax.numpy as jnp
 
 import cvxpygen_tpu as ct_ref
@@ -63,17 +69,27 @@ def test_cone_calculus_matches_reference():
     u, v = _interior(rng, 5), _interior(rng, 5)
     w = rng.standard_normal(u.shape)
     tu, tv, tw = (torch.tensor(a) for a in (u, v, w))
+
+    @functools.partial(jax.jit, static_argnums=3)
+    def reference(u, v, w, inv):
+        W_r = ipm_ref.BatchNT(u, v, L, SOCS)
+        return (ipm_ref.jprod(u, w, L, SOCS), ipm_ref.jdiv(u, w, L, SOCS),
+                ipm_ref.cone_dist(w, L, SOCS),
+                ipm_ref.cone_dist(w[:, :L], L, ()), W_r.mul(w, inv=inv),
+                W_r.wtw_dense(5, u.shape[1], jnp.float64, inv=inv))
+
     _close(ipm.cone_e(5, L, SOCS, torch.float64),
            ipm_ref.cone_e(5, L, SOCS, jnp.float64))
-    _close(ipm.jprod(tu, tw, L, SOCS), ipm_ref.jprod(u, w, L, SOCS))
-    _close(ipm.jdiv(tu, tw, L, SOCS), ipm_ref.jdiv(u, w, L, SOCS))
-    _close(ipm.cone_dist(tw, L, SOCS), ipm_ref.cone_dist(w, L, SOCS))
-    _close(ipm.cone_dist(tw[:, :L], L, ()), ipm_ref.cone_dist(w[:, :L], L, ()))
-    W, W_r = ipm.BatchNT(tu, tv, L, SOCS), ipm_ref.BatchNT(u, v, L, SOCS)
+    prod, div, dist, dist_l, _, _ = reference(u, v, w, False)
+    _close(ipm.jprod(tu, tw, L, SOCS), prod)
+    _close(ipm.jdiv(tu, tw, L, SOCS), div)
+    _close(ipm.cone_dist(tw, L, SOCS), dist)
+    _close(ipm.cone_dist(tw[:, :L], L, ()), dist_l)
+    W = ipm.BatchNT(tu, tv, L, SOCS)
     for inv in (False, True):
-        _close(W.mul(tw, inv=inv), W_r.mul(w, inv=inv))
-        _close(W.wtw_dense(5, u.shape[1], torch.float64, inv=inv),
-               W_r.wtw_dense(5, u.shape[1], jnp.float64, inv=inv))
+        mul, wtw = reference(u, v, w, inv)[4:]
+        _close(W.mul(tw, inv=inv), mul)
+        _close(W.wtw_dense(5, u.shape[1], torch.float64, inv=inv), wtw)
     # the NT point maps z to W^-T s = lambda
     _close(W.mul(tv), W.mul(tu, inv=True), 1e-10)
 
@@ -85,7 +101,8 @@ def test_max_step_cone_matches_reference():
     dv[0] = v[0]                        # along the point: no boundary
     dv[1, L:L + 4] = [1.0, 1.0, 0.0, 0.0]   # a2 = 0: the linear root
     got = ipm.max_step_cone(torch.tensor(v), torch.tensor(dv), L, SOCS)
-    ref = ipm_ref.max_step_cone(v, dv, L, SOCS)
+    ref = jax.jit(ipm_ref.max_step_cone, static_argnums=(2, 3))(v, dv, L,
+                                                                 SOCS)
     _close(got, ref)
     assert float(got[0]) == 1e20
 
@@ -100,7 +117,8 @@ def test_ruiz_equilibrate_matches_reference():
             rng.standard_normal((B, mc)))
     blocks = ipm._soc_slices(L, SOCS)
     got = ipm.ruiz_equilibrate_ipm(*(torch.tensor(a) for a in data), blocks, 4)
-    ref = ipm_ref.ruiz_equilibrate_ipm(*data, blocks, 4)
+    ref = jax.jit(ipm_ref.ruiz_equilibrate_ipm, static_argnums=(6, 7))(
+        *data, tuple(blocks), 4)
     for a, b in zip(got, ref):
         _close(a, b)
 
@@ -204,6 +222,44 @@ def test_entropy_default_scaling_reaches_optimum(entropy, mode):
     np.testing.assert_allclose(-(out['obj'] + out['d']),
                                np.log(np.sum(np.exp(cs), axis=1)), rtol=0,
                                atol=1e-7)
+
+
+@pytest.mark.parametrize('route,over', [('k9', {}), ('k10', {}),
+                                        ('k9', dict(ldl_two_level=True))],
+                         ids=['k9', 'k10', 'k9_two_level'])
+def test_entropy_fused_routes_match_reference(entropy, monkeypatch, route,
+                                              over):
+    """The slice end to end: the entropy family (n=8, B=8) through the
+    port's CompiledConicSolver with the route helper forced to K9 or K10
+    (their plain versions on the CPU) against the JAX package's 'ldl'
+    solve: equal status and iterations, x within 1e-6 (the two-level
+    route: equal status, objectives within 1e-6, the bar of its K6 + K7
+    route in tests/test_torch_ipm.py).  K6 runs in neither route."""
+    calls = {'fused': 0}
+    fused = {'k9': 'ldl_factor_inverse_kernel', 'k10': 'ldl_kinv_kernel'}[
+        route]
+    real = getattr(ipm, fused)
+
+    def counted(*args, **kw):
+        calls['fused'] += 1
+        return real(*args, **kw)
+
+    def no_k6(*args, **kw):
+        raise AssertionError('K6 ran on a fused route')
+
+    monkeypatch.setattr(ipm, '_kinv_route',
+                        lambda device, st, two_level: route)
+    monkeypatch.setattr(ipm, fused, counted)
+    monkeypatch.setattr(ipm, 'ldl_factor_kernel', no_k6)
+    out, ref = _port_solve(entropy, **CMP, **over), entropy['ref']
+    assert calls['fused'] > 0
+    np.testing.assert_array_equal(out['status'], ref['status'])
+    assert np.all(out['status'] == 1)
+    if over:
+        np.testing.assert_allclose(out['obj'], ref['obj'], rtol=0, atol=1e-6)
+        return
+    np.testing.assert_array_equal(out['iters'], ref['iters'])
+    np.testing.assert_allclose(out['x'], ref['x'], rtol=0, atol=1e-6)
 
 
 def test_fused_opt_ins_ignored_off_cuda(monkeypatch):

@@ -1,5 +1,7 @@
 """The port's exotic-cone calculus (cvxpygen_tpu_torch/solvers/ipm_cones.py)
-against the JAX package's, called eagerly (float64): the closed-form
+against the JAX package's, each reference under jax.jit (float64; called
+eagerly, JAX dispatches and compiles every operation of its loops one by
+one, which took most of this file's time): the closed-form
 barrier derivatives against JAX autodiff, the scalings, step lengths,
 proximity and distances; then the HSDE post-pass through the port's
 CompiledConicSolver on the infeasible families of tests/test_hsde.py, held
@@ -60,18 +62,19 @@ def test_barrier_derivatives_match_autodiff():
     zf = z[:, :6].reshape(-1, 3)
     sf = s[:, :6].reshape(-1, 3)
     g, h = port._exp_dual_derivs(*_t(zf))
-    _close(g, ref._exp_grad(zf))
-    _close(h, ref._exp_hess(zf))
-    _close(port._exp_primal_grad(*_t(sf)), ref._exp_pgrad(sf))
+    _close(g, jax.jit(ref._exp_grad)(zf))
+    _close(h, jax.jit(ref._exp_hess)(zf))
+    _close(port._exp_primal_grad(*_t(sf)), jax.jit(ref._exp_pgrad)(sf))
     exo = ref.ExoticCones(**EXO)
+    pow_grad_hess = jax.jit(ref._pow_grad_hess, static_argnums=1)
     for i, a in enumerate(EXO['pow_alphas']):
         o = exo.pow_off + 3 * i
-        g_r, h_r = ref._pow_grad_hess(z[:, o:o + 3], a)
+        g_r, h_r = pow_grad_hess(z[:, o:o + 3], a)
         g, h = port._pow_dual_derivs(*_t(z[:, o:o + 3]), a)
         _close(g, g_r)
         _close(h, h_r)
-        pg_r = jax.vmap(jax.grad(
-            lambda v, aa=a: ref._pow_primal_barrier(v, aa)))(s[:, o:o + 3])
+        pg_r = jax.jit(jax.vmap(jax.grad(
+            lambda v, aa=a: ref._pow_primal_barrier(v, aa))))(s[:, o:o + 3])
         _close(port._pow_primal_grad(*_t(s[:, o:o + 3]), a), pg_r)
 
 
@@ -109,7 +112,7 @@ def test_exotic_scaling_matches_reference(strategy):
 def test_sanitize_and_inv33_match_reference():
     rng = np.random.default_rng(2)
     A = rng.standard_normal((5, 3, 3)) + 3 * np.eye(3)
-    _close(port._inv33(torch.tensor(A)), ref._inv33(A))
+    _close(port._inv33(torch.tensor(A)), jax.jit(ref._inv33)(A))
     H = np.einsum('bij,bkj->bik', A, A)
     g = rng.standard_normal((5, 3))
     H[1, 0, 0] = np.nan
@@ -118,7 +121,8 @@ def test_sanitize_and_inv33_match_reference():
     s3, z3 = np.abs(rng.standard_normal((2, 5, 3))) + 0.1
     mu = np.abs(rng.standard_normal(5))
     for a, b in zip(port._sanitize_blocks(*_t(H, g, s3, z3, mu)),
-                    ref._sanitize_blocks(H, g, s3, z3, mu_floor=mu)):
+                    jax.jit(ref._sanitize_blocks)(H, g, s3, z3,
+                                                  mu_floor=mu)):
         _close(a, b)
 
 
@@ -130,7 +134,8 @@ def test_step_proximity_and_distances_match_reference():
     dz = rng.standard_normal(z.shape)
     exo_r, exo = ref.ExoticCones(**EXO), port.ExoticCones(**EXO)
     _close(port.exotic_init(B, exo, torch.float64),
-           ref.exotic_init(B, exo_r, np.float64))
+           jax.jit(ref.exotic_init, static_argnums=(0, 1, 2))(B, exo_r,
+                                                              np.float64))
     _close(port.exotic_max_step(exo, *_t(s, ds, z, dz)),
            jax.jit(ref.exotic_max_step, static_argnums=0)(exo_r, s, ds, z,
                                                           dz))
@@ -147,9 +152,9 @@ def test_step_proximity_and_distances_match_reference():
                                               exo_r.degree, alpha, **kw))
     w = rng.standard_normal(s.shape)
     _close(port.exotic_dual_dist(exo, torch.tensor(w)),
-           ref.exotic_dual_dist(exo_r, w))
+           jax.jit(ref.exotic_dual_dist, static_argnums=0)(exo_r, w))
     _close(port.exotic_primal_dist(exo, torch.tensor(w)),
-           ref.exotic_primal_dist(exo_r, w))
+           jax.jit(ref.exotic_primal_dist, static_argnums=0)(exo_r, w))
     assert exo.dim == exo_r.dim and exo.degree == exo_r.degree
     assert exo.blocks() == exo_r.blocks()
 

@@ -1,8 +1,9 @@
 """The plain versions of kernels K9 and K10 (cvxpygen_tpu_torch/ops/
 ldl_kernel.py: ldl_factor_inverse_plain, ldl_kinv_plain) against the JAX
-package's fused factor + inverse Pallas kernels in interpret mode, float64;
-and the conic IPM's 'ldl' routes through them (the route helper forced onto
-the plain versions) against the JAX package's IPM, float64 on the CPU."""
+package's fused factor + inverse Pallas kernels in interpret mode, float64,
+and the fused kernel's layout rule.  The conic IPM's routes through them
+are held to the JAX package's IPM in tests/test_torch_ipm.py, beside the
+one compile of its reference solve."""
 import functools
 
 import numpy as np
@@ -16,10 +17,6 @@ import jax.numpy as jnp
 from cvxpygen_tpu.ops.ldl_kernel import (ldl_factor_inverse_pallas,
                                          ldl_kinv_pallas)
 from cvxpygen_tpu_torch.ops import ldl_kernel
-from cvxpygen_tpu_torch.solvers import ipm
-# the module-scoped fixture of the entropy slice (the JAX package's 'ldl'
-# solve at CMP), computed once for this module too
-from test_torch_ipm import CMP, _port_solve, entropy  # noqa: F401
 
 TOL = 1e-9
 DD = float(np.finfo(np.float32).eps) ** 0.5 * 0.1
@@ -94,44 +91,6 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     np.testing.assert_allclose(
         ldl_kernel.ldl_factor_inverse_plain(Kt, signs, DD).numpy(),
         ldl_kernel.ldl_kinv_plain(Kt, signs, DD).numpy(), rtol=0, atol=1e-12)
-
-
-@pytest.mark.parametrize('route,over', [('k9', {}), ('k10', {}),
-                                        ('k9', dict(ldl_two_level=True))],
-                         ids=['k9', 'k10', 'k9_two_level'])
-def test_entropy_fused_routes_match_reference(entropy, monkeypatch, route,
-                                              over):
-    """The slice end to end: the entropy family (n=8, B=8) through the
-    port's CompiledConicSolver with the route helper forced to K9 or K10
-    (their plain versions on the CPU) against the JAX package's 'ldl'
-    solve: equal status and iterations, x within 1e-6 (the two-level
-    route: equal status, objectives within 1e-6, the bar of its K6 + K7
-    route in tests/test_torch_ipm.py).  K6 runs in neither route."""
-    calls = {'fused': 0}
-    fused = {'k9': 'ldl_factor_inverse_kernel', 'k10': 'ldl_kinv_kernel'}[
-        route]
-    real = getattr(ipm, fused)
-
-    def counted(*args, **kw):
-        calls['fused'] += 1
-        return real(*args, **kw)
-
-    def no_k6(*args, **kw):
-        raise AssertionError('K6 ran on a fused route')
-
-    monkeypatch.setattr(ipm, '_kinv_route',
-                        lambda device, st, two_level: route)
-    monkeypatch.setattr(ipm, fused, counted)
-    monkeypatch.setattr(ipm, 'ldl_factor_kernel', no_k6)
-    out, ref = _port_solve(entropy, **CMP, **over), entropy['ref']
-    assert calls['fused'] > 0
-    np.testing.assert_array_equal(out['status'], ref['status'])
-    assert np.all(out['status'] == 1)
-    if over:
-        np.testing.assert_allclose(out['obj'], ref['obj'], rtol=0, atol=1e-6)
-        return
-    np.testing.assert_array_equal(out['iters'], ref['iters'])
-    np.testing.assert_allclose(out['x'], ref['x'], rtol=0, atol=1e-6)
 
 
 # the fused kernel's layout by N (csrc/ldl_kinv.cu): the factor resident in

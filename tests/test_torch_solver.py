@@ -6,6 +6,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import problems as problems_ref
 import cvxpygen_tpu_torch
@@ -20,6 +21,15 @@ from cvxpygen_tpu_torch.canon.canonicalizer import (canonicalize,
 from cvxpygen_tpu_torch.runtime.solver import (CompiledQPSolver,
                                                make_compiled_solver)
 from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+
+
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One BLAS/OpenMP thread per test: the suite runs in several worker
+    processes on shared cores, where multi-threaded BLAS and torch calls on
+    these small problems spin against each other."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _problems_torch():
@@ -149,10 +159,10 @@ def test_non_shared_batch_solves():
 @pytest.mark.parametrize('engine', ['never', 'full_interpret'])
 def test_per_instance_solve_batch_matches_reference(engine):
     """shared_PA=False on MPC H=3: the per-instance branch of both packages
-    on the same 16 distinct x_init."""
+    on the same 8 distinct x_init."""
     ref, _ = _mpc_pair()
     fam_ref = canon_ref(ref)
-    theta = _x_init_batch(fam_ref, ref, 16)
+    theta = _x_init_batch(fam_ref, ref, 8)
     kw = dict(eps_abs=1e-6, eps_rel=1e-6, max_iter=8000, use_pallas=engine,
               kkt_solver='inv' if engine == 'never' else 'ns', ns_iters=40,
               adaptive_rho=True, adaptive_rho_tolerance=1.5)
@@ -209,25 +219,29 @@ def test_device_unset_without_cuda_raises(monkeypatch, tmp_path):
 
 def test_unported_engines_raise(tmp_path):
     """The engines the port does not have yet raise NotImplementedError
-    naming their ROADMAP item (the conic ADMM, the explicit solver,
-    gradients); the IPM aliases, which raised before the interior-point
-    engine was ported, and the long-horizon MPC family, which raised before
-    the banded solver was ported, now route to their solvers."""
+    naming their ROADMAP item (the explicit solver, gradients through a
+    conic engine); the engines that raised before they were ported now
+    route to their solvers: the IPM aliases, the conic ADMM (SCS), the
+    long-horizon MPC family (the banded solver) and gradient=True on a
+    QP-form package."""
     pt = _problems_torch()
     _, port = _mpc_pair()
     fam = canonicalize(port)
     for solver in ('SCS', 'CONIC_ADMM'):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            make_compiled_solver(fam, solver, device='cpu')
+        assert make_compiled_solver(fam, solver,
+                                    device='cpu').solver_name == 'CONIC_ADMM'
     for solver in ('IPM', 'ECOS', 'CLARABEL', 'QOCO', 'QOCOGEN'):
         assert make_compiled_solver(fam, solver,
                                     device='cpu').solver_name == 'IPM'
-    for kw in (dict(solver='explicit'), dict(solver='SCS'),
-               dict(solver='ADMM', gradient=True),
-               dict(solver='ECOS', gradient=True)):
+    for kw in (dict(solver='explicit'), dict(solver='ECOS', gradient=True),
+               dict(solver='SCS', gradient=True)):
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
             cpg.generate_code(port, code_dir=str(tmp_path / 'p'),
                               device='cpu', **kw)
+    for kw in (dict(solver='SCS'), dict(solver='ADMM', gradient=True)):
+        mod = cpg.generate_code(port, code_dir=str(tmp_path / 'p'),
+                                device='cpu', **kw)
+        assert mod._runtime.requested_solver == kw['solver']
     long_mpc = canonicalize(pt.assign_MPC(pt.MPC_problem(H=30)))
     assert long_mpc.n >= 512
     assert make_compiled_solver(long_mpc, 'ADMM',
@@ -264,7 +278,7 @@ def _pow(pkg):
 def test_default_solver_matches_reference(family, tmp_path):
     """generate_code's default engine follows the reference's rule
     (cvxpygen_tpu/cpg.py:48-55): QP-form -> ADMM, SOC-only -> IPM,
-    exp/PSD/pow -> SCS, which still raises naming its ROADMAP item."""
+    exp/PSD/pow -> SCS (the conic ADMM)."""
     import cvxpygen_tpu as ct_ref
     from cvxpygen_tpu_torch.cpg import default_solver
     pt = _problems_torch()
@@ -282,11 +296,5 @@ def test_default_solver_matches_reference(family, tmp_path):
     cpg_ref.generate_code(ref, code_dir=str(ref_dir), wrapper=False)
     assert f'"solver": "{want}"' in (ref_dir / 'cpg_solver.py').read_text()
     assert default_solver(canonicalize(port)) == want
-    if want == 'SCS':
-        with pytest.raises(NotImplementedError, match='item 8'):
-            cpg.generate_code(port, code_dir=str(tmp_path / 'p'),
-                              device='cpu')
-    else:
-        mod = cpg.generate_code(port, code_dir=str(tmp_path / 'p'),
-                                device='cpu')
-        assert mod._runtime.requested_solver == want
+    mod = cpg.generate_code(port, code_dir=str(tmp_path / 'p'), device='cpu')
+    assert mod._runtime.requested_solver == want
