@@ -204,8 +204,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    generate_code(gradient=True) -> cpg_gradient on the family of
    tests/test_codegen.py::test_gradient_package, finite and within 1e-2 of
    the CPU float64 run;
-16. a JSON line with each kernel's launches, error, times and bound;
-17. the card's name and power limit (nvidia-smi), then the result line.
+16. the conic and banded differentiation: TorchLayer on MPC H=10 (phase
+   15's batch) with K1 in the forward once more (a QP family's route);
+   TorchLayer on the ADP SOCP family (bench.py:347-392, B=1024, f times
+   U(0.5, 1.5) from default_rng(1), phase 11's settings) through the
+   default forward ('schur') and through kkt_solver='ldl',
+   ldl_two_level=True (K6 + K7, their launches counted), u and df of
+   w.u + |u|^2 / 2 within 1e-2 * max(1, |v|_inf) of the port's CPU float64
+   run on 8 instances; the max-eigenvalue SDP (s=5, B=256) through the
+   conic ADMM forward at eps 1e-5, dA within 1e-2 of v v' at the top
+   eigenvector where the top eigengap is >= 0.1; generate_code(solver=
+   'SCS', gradient=True) -> cpg_gradient on the exp family of
+   tests/test_conic_diff_exotic.py:135-170 against the CPU float64 run
+   within 1e-2; charging T=288 (tests/test_qp_diff_banded.py's family,
+   n + m = 2021, B=16, eps 1e-4) through TorchLayer's banded route, and
+   the banded backward against the dense float64 qp_vjp on the card on
+   the same forward's x, y, z within 1e-3; charging T=1440 (phase 9's
+   family, n + m = 14405, B=8, eps 1e-4) through the banded route, its
+   forward and backward times and peak device memory;
+17. the explicit solver: the regression (q=10, d=5) and power families of
+   tests/test_explicit.py through generate_code(solver='explicit'),
+   solve(method='CPG') (first call and the mean of five more) within 1e-4
+   of the oracle, and explicit_evaluate at B=16384 parameter points drawn
+   over the domain box: its time (CUDA events), x within 1e-4 of the
+   oracle on 64 and within 1e-5 of the CPU evaluator on all, and a
+   chunked evaluation within 1e-5 of the whole;
+18. a JSON line with each kernel's launches, error, times and bound;
+19. the card's name and power limit (nvidia-smi), then the result line.
 
 ``python3 chip_smoke.py --block-sweep`` instead builds the kernels and runs
 K2 on the portfolio and MPC general batches at several blocks, printing
@@ -3556,20 +3581,19 @@ LAYER_TOL = 1e-3
 GRAD_TOL = 1e-2
 
 
-def layer_inputs(prob, dev, B):
-    """The MPC parameters as tensors: x_init batched (B, 6), requiring
-    grad, the others unbatched."""
+def tensors_of(prob, batched, dev, dtype=torch.float32):
+    """The problem's parameters as tensors: ``batched`` maps a name to its
+    (B, ...) values, which require grad; the rest are the values set."""
     params = list(prob.parameters())
-    tensors = []
+    out = []
     for p in params:
-        if p.name() == 'x_init':
-            tensors.append(torch.as_tensor(
-                x_init_batch_values(B), dtype=torch.float32,
-                device=dev).requires_grad_())
+        if p.name() in batched:
+            out.append(torch.as_tensor(batched[p.name()], dtype=dtype,
+                                       device=dev).requires_grad_())
         else:
-            tensors.append(torch.as_tensor(p.value, dtype=torch.float32,
-                                           device=dev))
-    return params, tensors
+            out.append(torch.as_tensor(np.asarray(p.value, dtype=float),
+                                       dtype=dtype, device=dev))
+    return params, out
 
 
 def x_init_batch_values(B, seed=0):
@@ -3626,7 +3650,8 @@ def phase_diff(card, dev='cuda'):
     prob = assign_mpc(mpc_problem(ct))
     fam = canonicalize(prob)
     U = [v for v in prob.variables() if v.name() == 'U'][0]
-    params, tensors = layer_inputs(prob, dev, B_LAYER)
+    params, tensors = tensors_of(
+        prob, dict(x_init=x_init_batch_values(B_LAYER)), dev)
     st_auto = ADMMSettings(**BENCH_SETTINGS)
     st_never = dataclasses.replace(st_auto, use_pallas='never')
     check(k1.pick_shared_chunk(B_LAYER, fam.m, fam.n) is not None,
@@ -3713,6 +3738,465 @@ def phase_diff(card, dev='cuda'):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: conic and banded differentiation (TorchLayer's conic and banded
+# routes, gradient=True on an exp family)
+# ---------------------------------------------------------------------------
+
+# dtheta against the port's CPU float64 run of the same instances, relative
+# to max(1, |dtheta|_inf) per instance: the float32 forwards stop at 3e-5
+# (ADP) and 1e-5 (the runtime's exp gradient settings)
+CONIC_DIFF_TOL = 1e-2
+N_CONIC_DIFF_REF = 8
+B_SDP_DIFF = 256
+# the SDP's dA against v v' (the top eigenvector): held where the top
+# eigenvalue is apart from the next by SDP_GAP, since dA moves as 1 / gap
+SDP_GAP = 0.1
+# the tests' charging family (tests/test_qp_diff_banded.py, n + m = 2021 at
+# T=288) and the bench's at T=1440 (n + m = 14405), both at eps 1e-4 (A3)
+CHARGING_DIFF_T = 288
+B_CHARGING_DIFF = 16
+B_CHARGING_DIFF_LONG = 8
+CHARGING_DIFF_SETTINGS = dict(CHARGING_SETTINGS, eps_abs=CHARGING_TIGHT_EPS,
+                              eps_rel=CHARGING_TIGHT_EPS, max_iter=20000)
+# the banded backward against the dense one on the same x, y, z
+BANDED_DIFF_TOL = 1e-3
+
+
+def theta_slice(fam, theta, name):
+    pi = [x for x in fam.param_info if x.name == name][0]
+    return theta[:, pi.offset:pi.offset + pi.flat_size]
+
+
+def charging_diff_problem(ct, T):
+    """tests/test_admm_banded.py:23-40's charging family: prices p, gamma."""
+    u = ct.Variable(T, name='u')
+    q = ct.Variable(T + 1, name='q')
+    p = ct.Parameter(T, nonneg=True, name='p')
+    gamma = ct.Parameter(nonneg=True, name='gamma')
+    gamma.value = 50.0
+    p.value = np.ones(T)
+    return ct.Problem(ct.Minimize(p @ u + gamma * ct.sum_squares(u)),
+                      [q[1:] == q[:-1] + u,
+                       ct.Constant(-0.1) <= u, u <= ct.Constant(0.05),
+                       ct.Constant(0) <= q, q <= ct.Constant(1.0),
+                       q[0] == 0, q[T] == ct.Constant(1.0)])
+
+
+def phase_conic_diff(card, dev='cuda'):
+    """Phase 16.  Returns the launches of K1 (the QP layer), K6 and K7 (the
+    conic layer's 'ldl' forward)."""
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.ops import admm_shared_kernel as k1
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
+    from cvxpygen_tpu_torch.runtime.solver import make_compiled_solver
+    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+    from cvxpygen_tpu_torch.solvers.ipm import IPMSettings
+    launches = {}
+
+    # the QP layer's route: K1 in the forward (phase 15's MPC batch)
+    mprob = assign_mpc(mpc_problem(ct))
+    U = mprob.var_dict['U']
+    params, tensors = tensors_of(
+        mprob, dict(x_init=x_init_batch_values(B_LAYER)), dev)
+    layer = ct.TorchLayer(mprob, parameters=params, variables=[U],
+                          settings=ADMMSettings(**BENCH_SETTINGS),
+                          device=dev)
+    check(not layer._conic and not layer._banded, 'MPC layer route')
+    w = torch.ones(U.shape, dtype=torch.float32, device=dev)
+    k1.admm_shared_solve.launches = 0
+    layer_run(layer, tensors, w, card, 'MPC QP layer')
+    launches['admm_shared_solve'] = k1.admm_shared_solve.launches
+    check(launches['admm_shared_solve'] > 0, 'the QP layer did not launch K1')
+
+    # ADP SOCP (bench.py:347-392), B=1024: the default forward ('schur')
+    # and the two-level 'ldl' one (K6 + K7), against the CPU float64 run
+    aprob = assign_adp(adp_problem(ct))
+    afam = canonicalize(aprob)
+    atheta = adp_batch(afam, aprob, B_ADP)
+    au = aprob.var_dict['u']
+    f_batch = theta_slice(afam, atheta, 'f')
+    w = torch.as_tensor(np.random.default_rng(4).normal(size=au.shape),
+                        dtype=torch.float32, device=dev)
+    st = IPMSettings.for_dtype(torch.float32, **ADP_SETTINGS)
+    n_ref = N_CONIC_DIFF_REF
+    asolver = make_compiled_solver(afam, 'IPM', device=dev)
+    ref_layer = ct.TorchLayer(
+        aprob, parameters=list(aprob.parameters()), variables=[au],
+        settings=IPMSettings.for_dtype(torch.float64,
+                                       max_iter=ADP_SETTINGS['max_iter']),
+        device='cpu')
+    _, ref_t = tensors_of(aprob, dict(f=f_batch[:n_ref]), 'cpu',
+                          torch.float64)
+    (ref_u,) = ref_layer(*ref_t)
+    w64 = w.double().cpu()
+    ((ref_u * w64).sum() + 0.5 * (ref_u * ref_u).sum()).backward()
+    ref_grad = ref_t[[p.name() for p in aprob.parameters()].index('f')].grad
+    for label, s in (("'schur' (the default)", st),
+                     ("'ldl', ldl_two_level=True",
+                      dataclasses.replace(st, kkt_solver='ldl',
+                                          ldl_two_level=True))):
+        layer = ct.TorchLayer(aprob, parameters=list(aprob.parameters()),
+                              variables=[au], settings=s, device=dev)
+        check(layer._conic and not layer._banded, 'ADP layer route')
+        _, tensors = tensors_of(aprob, dict(f=f_batch), dev)
+        for kern in (lk.ldl_factor_kernel, lk.ldl_inverse_kernel,
+                     lk.ldl_solve_kernel):
+            kern.launches = 0
+        u, grad, fwd_ms, bwd_ms = layer_run(layer, tensors, w, card,
+                                            f'ADP {label}')
+        counts = (lk.ldl_factor_kernel.launches,
+                  lk.ldl_inverse_kernel.launches,
+                  lk.ldl_solve_kernel.launches)
+        u_err = float(inst_err(u[:n_ref].cpu(), ref_u.detach()).max())
+        g_err = float(inst_err(grad[:n_ref].cpu(), ref_grad).max())
+        iters = asolver.solve_batch(atheta, settings=s)['iters'].float()
+        print(f'# phase 16: TorchLayer ADP SOCP (n={afam.n}, m={afam.m}), '
+              f'B={B_ADP}, forward {label}: forward {fwd_ms:.3f} ms, one '
+              f'call (the same solve: mean iters {float(iters.mean()):.2f}, '
+              f'max {int(iters.max())}; launches K6 {counts[0]}, K7 '
+              f'{counts[1]}, K8 {counts[2]}), '
+              f'backward {bwd_ms:.3f} ms (LU of the (B, {afam.n + afam.m}, '
+              f'{afam.n + afam.m}) sensitivity matrix); against the CPU '
+              f'float64 run on {n_ref}: u max rel {u_err:.3e}, df max rel '
+              f'{g_err:.3e} [{card}]')
+        check(g_err <= CONIC_DIFF_TOL and u_err <= CONIC_DIFF_TOL,
+              f'ADP {label}: u {u_err:.3e}, df {g_err:.3e}')
+        if s.kkt_solver == 'ldl':
+            check(counts[0] > 0 and counts[1] == counts[0]
+                  and counts[2] == 0, f'ADP ldl launches {counts}')
+            launches['ldl_factor'], launches['ldl_inverse'] = counts[:2]
+        else:
+            check(counts == (0, 0, 0), f"ADP 'schur' launches {counts}")
+
+    # the max-eigenvalue SDP (examples/logistic_and_sdp.py, s=5), B=256,
+    # through the conic ADMM forward at the runtime's float32 gradient
+    # settings: dA against v v' at the top eigenvector
+    from cvxpygen_tpu_torch.solvers.conic_admm import ConicADMMSettings
+    sprob, A = sdp_problem(ct)
+    A.value = np.eye(SDP_S)
+    sfam = canonicalize(sprob)
+    stheta, _ = sdp_batch(sfam, sprob, A, B_SDP_DIFF)
+    As = np.stack([sfam.unpack_theta_grad(th)['A'] for th in stheta])
+    sst = ConicADMMSettings(eps_abs=1e-5, eps_rel=1e-5, max_iter=20000)
+    layer = ct.TorchLayer(sprob, parameters=[A],
+                          variables=[sprob.var_dict['t']], settings=sst,
+                          device=dev)
+    check(layer._conic, 'SDP layer route')
+    At = torch.as_tensor(As, dtype=torch.float32, device=dev)
+    At.requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (tv,) = layer(At)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tv.sum().backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    # the same per-instance solve as the layer's forward, for its iterations
+    iters = make_compiled_solver(sfam, 'SCS', device=dev).solve_batch(
+        stheta, settings=sst, shared_PA=False)['iters'].float()
+    lam, Q = np.linalg.eigh(As)
+    v = Q[:, :, -1]
+    err = np.abs(At.grad.double().cpu().numpy()
+                 - v[:, :, None] * v[:, None, :]).max(axis=(1, 2))
+    gap = lam[:, -1] - lam[:, -2]
+    held = gap >= SDP_GAP
+    t_err = float(np.abs(tv.detach().double().cpu().numpy()
+                         - lam[:, -1]).max())
+    print(f'# phase 16: TorchLayer max-eigenvalue SDP s={SDP_S}, '
+          f'B={B_SDP_DIFF} (conic ADMM forward, eps 1e-5): forward '
+          f'{1e3 * (t1 - t0):.3f} ms (mean iters {float(iters.mean()):.2f}, '
+          f'max {int(iters.max())}), backward {1e3 * (t2 - t1):.3f} ms; '
+          f't against lambda_max max abs {t_err:.3e}; dA against v v\' max '
+          f'abs {float(err[held].max()):.3e} on the {int(held.sum())} '
+          f'instances with an eigengap >= {SDP_GAP}, '
+          f'{float(err.max()):.3e} on all (smallest gap '
+          f'{float(gap.min()):.3e}) [{card}]')
+    check(bool(np.all(np.isfinite(err))), 'SDP: non-finite dA')
+    check(float(err[held].max()) <= CONIC_DIFF_TOL,
+          f'SDP dA {float(err[held].max()):.3e}')
+
+    # generate_code(solver='SCS', gradient=True) on the exp family of
+    # tests/test_conic_diff_exotic.py:135-170, B=1, against the CPU float64
+    exp_gradient(card, dev)
+
+    # charging T=288 through the layer's banded route (B=16), and the banded
+    # backward against the dense one on the same solve
+    banded_diff(card, dev)
+    return launches
+
+
+def exp_gradient(card, dev):
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch import cpg
+    grads, times = {}, {}
+    for where in ('cpu', dev):
+        x = ct.Variable(2, name='x')
+        p = ct.Parameter(2, name='p')
+        p.value = np.array([0.5, -0.3])
+        prob = ct.Problem(ct.Minimize(ct.sum(ct.exp(x - p))
+                                      + ct.sum_squares(x)))
+        mod = cpg.generate_code(
+            prob, code_dir=os.path.join(ROOT, 'build', 'chip_smoke',
+                                        f'exp_grad_{where}'),
+            solver='SCS', gradient=True, device=where)
+        check(mod._runtime.solver.solver_name == 'CONIC_ADMM',
+              'exp gradient package engine')
+        prob.solve(method='CPG')
+        check(prob.status == 'optimal', f'exp CPG {prob.status}')
+        x.gradient = np.array([1.0, 0.0])
+        t0 = time.perf_counter()
+        grads[where] = mod.cpg_gradient(prob)['p']
+        t1 = time.perf_counter()
+        mod.cpg_gradient(prob)
+        times[where] = (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1))
+    g, g64 = grads[dev], grads['cpu']
+    rel = float(np.abs(g - g64).max() / max(1.0, np.abs(g64).max()))
+    print(f'# phase 16: generate_code(solver=SCS, gradient=True) on the exp '
+          f'family, cpg_gradient: {g} against the CPU float64 run {g64} '
+          f'(max rel {rel:.3e}); {times[dev][0]:.1f} ms first call, '
+          f'{times[dev][1]:.1f} ms the next (a float32 conic ADMM re-solve '
+          f'at eps 1e-5, then the backward) [{card}]')
+    check(bool(np.all(np.isfinite(g))) and rel <= CONIC_DIFF_TOL,
+          f'exp cpg_gradient rel {rel:.3e}')
+
+
+def banded_diff(card, dev):
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch.autodiff.qp_diff import qp_vjp
+    from cvxpygen_tpu_torch.autodiff.qp_diff_banded import banded_vjp
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.runtime.torch_family import (
+        TorchFamily, canon_batch, canon_batch_sparse, qp_bounds_batch)
+    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+    from cvxpygen_tpu_torch.solvers.admm_banded import (
+        admm_solve_banded, banded_index, build_banded_structure)
+    st = ADMMSettings(**CHARGING_DIFF_SETTINGS)
+    T = CHARGING_DIFF_T
+    prob = charging_diff_problem(ct, T)
+    fam = canonicalize(prob)
+    check(fam.n + fam.m > 1500, f'charging T={T}: n + m = {fam.n + fam.m}')
+    B = B_CHARGING_DIFF
+    rng = np.random.default_rng(0)
+    p_batch = 1.0 + 4.0 * rng.random((B, T))
+    layer = ct.TorchLayer(prob, parameters=[prob.param_dict['p'],
+                                            prob.param_dict['gamma']],
+                          variables=[prob.var_dict['u']], settings=st,
+                          device=dev)
+    check(layer._banded and not layer._conic,
+          f'charging T={T}: the banded route')
+    _, tensors = tensors_of(prob, dict(p=p_batch), dev)
+    w = torch.as_tensor(rng.normal(size=T), dtype=torch.float32, device=dev)
+    u, grad, fwd_ms, bwd_ms = layer_run(layer, tensors, w, card,
+                                        f'charging T={T}')
+    # the same forward, then both backwards on its x, y, z: the banded one
+    # in the working dtype and the dense qp_vjp in float64 on the card
+    tf = TorchFamily.from_family(fam, device=dev, force_scatter=True)
+    struct = build_banded_structure(fam.P_idx, fam.A_idx, fam.n, fam.m)
+    ix = banded_index(struct, dev)
+    theta = np.tile(fam.pack_theta(params=prob.parameters()), (B, 1))
+    theta_slice(fam, theta, 'p')[:] = p_batch
+    th = torch.as_tensor(theta, dtype=torch.float32, device=dev)
+    data = canon_batch_sparse(tf, th)
+    l, u_b = qp_bounds_batch(tf, data['b'])
+    res = admm_solve_banded(struct, data['pvals'], data['q'], data['avals'],
+                            l, u_b, fam.n_zero, st, index=ix)
+    check(bool((res['status'] == 1).all()), 'charging T=288 unsolved')
+    iters = res['iters'].float()
+    gx = torch.as_tensor(rng.normal(size=(B, fam.n)), dtype=torch.float32,
+                         device=dev)
+    zero = torch.zeros((B, fam.m), dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_band = banded_vjp(tf, struct, ix, th, res['x'], res['y'], res['z'],
+                        data['pvals'], data['avals'], data['q'], l, u_b, gx,
+                        zero, zero[:, 0])
+    torch.cuda.synchronize()
+    t_band = 1e3 * (time.perf_counter() - t0)
+    tf64 = TorchFamily.from_family(fam, dtype=torch.float64, device=dev)
+    th64 = th.double()
+    dense = canon_batch(tf64, th64)
+    l64, u64 = qp_bounds_batch(tf64, dense['b'])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_dense = qp_vjp(tf64, th64, res['x'].double(), res['y'].double(),
+                     res['z'].double(), dense['P'], dense['q'], dense['A'],
+                     l64, u64, gx.double(), zero.double(),
+                     zero[:, 0].double())
+    torch.cuda.synchronize()
+    t_dense = 1e3 * (time.perf_counter() - t0)
+    err = float(inst_err(d_band, d_dense).max())
+    print(f'# phase 16: TorchLayer charging T={T} (n={fam.n}, m={fam.m}, '
+          f'the banded route), B={B}, eps {CHARGING_TIGHT_EPS:g}: forward '
+          f'{fwd_ms:.1f} ms (mean iters {float(iters.mean()):.1f}, max '
+          f'{int(iters.max())}), backward {bwd_ms:.3f} ms; the banded '
+          f'backward {t_band:.3f} ms against the dense float64 qp_vjp '
+          f'{t_dense:.3f} ms on the same x, y, z: max rel {err:.3e} [{card}]')
+    check(bool(torch.isfinite(d_band).all()), 'non-finite banded dtheta')
+    check(err <= BANDED_DIFF_TOL, f'banded backward rel {err:.3e}')
+
+    # charging T=1440 (the bench's family), B=8: the backward where the
+    # dense reduced KKT would take (n + m)^2 x 4 bytes per instance
+    cprob = charging_problem(ct)
+    cfam = canonicalize(cprob)
+    N = cfam.n + cfam.m
+    B = B_CHARGING_DIFF_LONG
+    ctheta = charging_batch(cfam, cprob, B)
+    layer = ct.TorchLayer(cprob, parameters=list(cprob.parameters()),
+                          variables=[cprob.var_dict['u']], settings=st,
+                          device=dev)
+    check(layer._banded, f'charging T={CHARGING_T}: the banded route')
+    _, tensors = tensors_of(cprob, dict(p=theta_slice(cfam, ctheta, 'p')),
+                            dev)
+    w = torch.as_tensor(rng.normal(size=CHARGING_T), dtype=torch.float32,
+                        device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    u, grad, fwd_ms, bwd_ms = layer_run(layer, tensors, w, card,
+                                        f'charging T={CHARGING_T}')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f'# phase 16: TorchLayer charging T={CHARGING_T} (n={cfam.n}, '
+          f'm={cfam.m}), B={B}, eps {CHARGING_TIGHT_EPS:g}: forward '
+          f'{fwd_ms:.1f} ms, backward {bwd_ms:.3f} ms, peak device memory '
+          f'{peak:.1f} MiB (a dense reduced KKT: {4 * N * N / 2 ** 20:.1f} '
+          f'MiB per instance in float32) [{card}]')
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the explicit solver
+# ---------------------------------------------------------------------------
+
+B_EXPLICIT = 16384
+N_ORACLE_EXPLICIT = 64
+# the reference's bar against the oracle (tests/test_explicit.py), and the
+# card's float32 evaluation against the CPU's (the same table)
+EXPLICIT_ORACLE_TOL = 1e-4
+EXPLICIT_CPU_TOL = 1e-5
+
+
+def explicit_regression(ct, q=10, d=5, seed=1):
+    """tests/test_explicit.py:12-19."""
+    np.random.seed(seed)
+    A = np.random.randn(q, d)
+    x = ct.Variable(d, name='x')
+    b = ct.Parameter(q, name='b')
+    prob = ct.Problem(ct.Minimize(ct.sum_squares(A @ x - b)),
+                      [ct.diff(x) >= 0, ct.Constant(-np.ones(q)) <= b,
+                       b <= 1])
+    b.value = -1 + 2 * np.random.default_rng(2).random(q)
+    return prob
+
+
+def explicit_power(ct):
+    """tests/test_explicit.py:39-75, the power-scheduling QP."""
+    C, D, h, Q = 1, 1, 0.05, 1
+    qtar, alpha, beta = 0.5, 0.1, 0.1
+    g = ct.Variable(name='g')
+    s = ct.Variable(name='s')
+    b = ct.Variable(name='b')
+    qplus = ct.Variable(name='qplus')
+    L = ct.Parameter(name='L')
+    S = ct.Parameter(name='S')
+    P = ct.Parameter(name='P')
+    q = ct.Parameter(name='q')
+    obj = P * g * h + alpha * (qplus - qtar) ** 2 + beta * b ** 2
+    constr = [L == s + b + g,
+              ct.Constant(0) <= s, s <= S, ct.Constant(-C) <= b, b <= D,
+              g >= 0, qplus == q - h * b, ct.Constant(0) <= qplus,
+              qplus <= Q, ct.Constant(0) <= L, L <= 1,
+              ct.Constant(0) <= S, S <= 0.5, ct.Constant(1) <= P, P <= 2,
+              ct.Constant(0) <= q, q <= Q]
+    rng = np.random.default_rng(2)
+    L.value, S.value = rng.random(), 0.5 * rng.random()
+    P.value, q.value = 1 + rng.random(), Q * rng.random()
+    return ct.Problem(ct.Minimize(obj), constr)
+
+
+def phase_explicit(card, dev='cuda'):
+    """Phase 17: the explicit solver on the regression and power families."""
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch import cpg
+    from cvxpygen_tpu_torch.solvers import explicit
+    from cvxpygen_tpu_torch.solvers.oracle import solve_family_numpy
+    for name, prob in (('regression', explicit_regression(ct)),
+                       ('power', explicit_power(ct))):
+        t0 = time.perf_counter()
+        mod = cpg.generate_code(
+            prob, code_dir=os.path.join(ROOT, 'build', 'chip_smoke',
+                                        f'explicit_{name}'),
+            solver='explicit', device=dev)
+        t_gen = time.perf_counter() - t0
+        rt = mod._runtime
+        data, fam = rt.data, rt.family
+        check(rt.device.type == 'cuda', f'{name}: explicit runtime device')
+        obj_oracle = prob.solve()
+        x_oracle = np.concatenate([np.ravel(v.value, order='F')
+                                   for v in prob.variables()])
+        t0 = time.perf_counter()
+        prob.solve(method='CPG')
+        t_first = time.perf_counter() - t0
+        x_cpg = np.concatenate([np.ravel(v.value, order='F')
+                                for v in prob.variables()])
+        t0 = time.perf_counter()
+        for _ in range(5):
+            obj = prob.solve(method='CPG')
+        t_steady = (time.perf_counter() - t0) / 5
+        x_err = float(np.abs(x_cpg - x_oracle).max())
+        check(x_err <= EXPLICIT_ORACLE_TOL and abs(obj - obj_oracle)
+              <= EXPLICIT_ORACLE_TOL * max(1.0, abs(obj_oracle)),
+              f'{name}: CPG x {x_err:.3e} from the oracle')
+
+        # a batch spread over the domain box: the card against the oracle
+        # and against the CPU's evaluation of the same table
+        rng = np.random.default_rng(6)
+        lo, hi = data.th_lb, data.th_ub
+        theta = np.tile(fam.pack_theta(params=prob.parameters()),
+                        (B_EXPLICIT, 1))
+        theta[:, data.th_sel] = lo + (hi - lo) * rng.random(
+            (B_EXPLICIT, len(lo)))
+        th_dev = torch.as_tensor(theta, device=dev)
+        x, _, region = explicit.explicit_evaluate(data, th_dev)
+        torch.cuda.synchronize()
+        ms, _ = cuda_ms(lambda: explicit.explicit_evaluate(data, th_dev), 20)
+        x_cpu, _, reg_cpu = explicit.explicit_evaluate(data, theta)
+        cpu_err = float((x.cpu() - x_cpu).abs().max())
+        same_region = float((region.cpu() == reg_cpu).double().mean())
+        errs = []
+        for i in range(N_ORACLE_EXPLICIT):
+            res, _ = solve_family_numpy(fam, theta[i])
+            errs.append(np.abs(x[i].double().cpu().numpy()
+                               - res.x[data.store_idx]).max())
+        o_err = float(max(errs))
+        # the chunked evaluation (its rule for batches whose slack tensor
+        # would not fit) on a few chunks of this batch
+        old = explicit._SLACK_FLOATS
+        explicit._SLACK_FLOATS = (B_EXPLICIT // 5 * data.TEST.shape[0]
+                                  * data.TEST.shape[1])
+        try:
+            x_ch, _, _ = explicit.explicit_evaluate(data, th_dev)
+        finally:
+            explicit._SLACK_FLOATS = old
+        ch_err = float((x_ch - x).abs().max())
+        R, t_max, p1 = data.TEST.shape
+        print(f'# phase 17: explicit {name} (n={fam.n}, {R} regions, '
+              f'{t_max} tests each, p_r={p1 - 1}): generate_code '
+              f'{t_gen:.2f} s (the enumeration on the host), '
+              f'solve(method=CPG) {1e3 * t_first:.3f} ms first call, '
+              f'{1e3 * t_steady:.3f} ms mean of the next five, x max abs '
+              f'{x_err:.3e} from the oracle; explicit_evaluate at '
+              f'B={B_EXPLICIT}: {ms:.4f} ms ({B_EXPLICIT / ms * 1e3:.4e} '
+              f'evaluations/s, CUDA events), x against the oracle on '
+              f'{N_ORACLE_EXPLICIT}: max abs {o_err:.3e}, against the CPU '
+              f'evaluator on all: {cpu_err:.3e} (same region on '
+              f'{same_region:.6f} of them), chunked against whole: '
+              f'{ch_err:.3e} [{card}]')
+        check(bool(torch.isfinite(x).all()), f'{name}: non-finite x')
+        check(o_err <= EXPLICIT_ORACLE_TOL, f'{name}: oracle {o_err:.3e}')
+        check(cpu_err <= EXPLICIT_CPU_TOL, f'{name}: CPU {cpu_err:.3e}')
+        check(ch_err <= EXPLICIT_CPU_TOL, f'{name}: chunks {ch_err:.3e}')
+
+
 def adp_problem(ct, n=6, m=3):
     """The ADP family of tests/problems.py:190-204 (reference
     tests/test_E2E_SOCP.py:14-35) in the port's modeling layer."""
@@ -3781,8 +4265,14 @@ def main():
         phase_conic(card)
     k11_numbers, k11_launches = phase_iterate(card)
     phase_conic_admm(card)
-    # the layer's K1 launches join the shared main path's (phase 3)
+    # the layers' K1 launches join the shared main path's (phase 3), the
+    # conic layer's K6 and K7 launches the IPM's (phase 11)
     k1_launches += phase_diff(card)
+    diff_launches = phase_conic_diff(card)
+    k1_launches += diff_launches['admm_shared_solve']
+    for name in ('ldl_factor', 'ldl_inverse'):
+        ldl_launches[name] += diff_launches[name]
+    phase_explicit(card)
     kernels = [
         dict(name='admm_shared_solve', route='cuda',
              source='cvxpygen_tpu_torch/csrc/admm_shared.cu',

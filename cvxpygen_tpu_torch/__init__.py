@@ -12,8 +12,13 @@ the reference it is held against.  Same layout and module names:
   (csrc/), each kernel beside its plain torch version;
 - cpg.generate_code provides the reference's public API
   (reference cvxpygen/cpg.py:17-30);
-- autodiff/ holds the differentiable QP solve and ``TorchLayer``, a
-  cvxpylayers-style layer over it.
+- autodiff/ holds the differentiable solves (QP, banded QP, conic) and
+  ``TorchLayer``, a cvxpylayers-style layer over them;
+- solvers/explicit.py holds the explicit (multi-parametric QP) solver:
+  the offline region enumeration and the torch lookup-table evaluator.
+
+Not ported yet: the parallel layer and the runtime extras (ROADMAP.md
+queue 1 item 11), and the embedded-C artifact (item 12).
 
 Entry points run on CUDA unless the caller passes ``device='cpu'``; with
 no card and no explicit device they raise.

@@ -1,16 +1,23 @@
-"""Torch layer over the differentiable batched QP solve (cvxpylayers
+"""Torch layer over the differentiable batched solve (cvxpylayers
 parity).
 
-Port of the JAX package's ``autodiff/torch_layer.py``: a layer object that
-maps parameter tensors to variable tensors with autograd support, batched
-over a leading axis.  The reference crosses from torch to JAX through
-NumPy on the host; here the tensors stay on the device and the solve is
-autodiff/qp_diff.py's ``torch.autograd.Function``.
+Port of the JAX package's ``autodiff/torch_layer.py``, routed as its
+``autodiff/jax_layer.py`` routes: a layer object that maps parameter
+tensors to variable tensors with autograd support, batched over a leading
+axis.  The reference crosses from torch to JAX through NumPy on the host;
+here the tensors stay on the device and the solve is one of three
+``torch.autograd.Function``s:
 
-QP-form families only.  A family with cones raises (the reference lacks
-this guard: its banded route solves such a family as a box QP), and so does
-a long-horizon banded family (n + m > 1500, where the reference routes to
-its banded vjp): both wait for ROADMAP.md queue 1 item 6.
+- cone families: autodiff/conic_diff.py (the conic ADMM forward for
+  exp/PSD/pow cones, the IPM for SOC-only ones);
+- QP families with n + m > 1500 and a block-banded KKT (``banded='auto'``;
+  ``True`` forces the banded route, ``False`` the dense one):
+  autodiff/qp_diff_banded.py;
+- other QP families: autodiff/qp_diff.py, the shared-KKT forward (kernel
+  K1 on the card) for a batch whose rows share P and A.
+
+The cone check comes before the band check: the reference's torch layer
+skips it and would solve a banded conic family as a box QP.
 """
 from __future__ import annotations
 
@@ -19,7 +26,8 @@ import torch
 
 from ..canon.canonicalizer import canonicalize
 from ..runtime.solver import pa_theta_mask
-from ..runtime.torch_family import TorchFamily, resolve_device
+from ..runtime.torch_family import (TorchFamily, default_dtype,
+                                     resolve_device)
 from ..solvers.admm import ADMMSettings
 from .qp_diff import make_diff_solve
 
@@ -31,20 +39,16 @@ class TorchLayer:
 
     Parameter tensors may carry one leading batch dimension (all batched
     tensors must agree; unbatched ones broadcast).  Gradients flow through
-    the KKT implicit differentiation of the batched solve.  A batch whose
-    rows share the canonical P and A takes the shared-KKT forward (kernel K1
-    on the card).  Runs on CUDA unless ``device`` says otherwise, in the
-    compiled solvers' dtype (float32 on CUDA, float64 on the CPU)."""
+    the implicit differentiation of the batched solve (see the module
+    docstring for the routes; ``_conic`` and ``_banded`` say which was
+    taken).  ``settings`` are the forward engine's.  Runs on CUDA unless
+    ``device`` says otherwise, in the compiled solvers' dtype (float32 on
+    CUDA, float64 on the CPU)."""
 
     def __init__(self, problem, parameters, variables, settings=None,
-                 device=None):
+                 device=None, banded='auto'):
         fam = canonicalize(problem)
         self._fam = fam
-        if fam.soc_dims or fam.n_exp or fam.psd_dims or fam.pow_alphas:
-            raise NotImplementedError(
-                'TorchLayer on a cone family needs the conic '
-                'differentiation (autodiff/conic_diff.py), which is not '
-                'ported yet: ROADMAP.md queue 1 item 6')
 
         prob_pids = [pi.pid for pi in fam.param_info]
         given_pids = [p.id for p in parameters]
@@ -61,25 +65,43 @@ class TorchLayer:
                 raise ValueError(f'variable {v.name()} not in problem')
             self._vinfos.append(by_vid[v.id])
 
-        if fam.n + fam.m > 1500:
-            from ..solvers.admm_banded import build_banded_structure
-            if build_banded_structure(fam.P_idx, fam.A_idx, fam.n,
-                                      fam.m) is not None:
-                raise NotImplementedError(
-                    'TorchLayer on a long-horizon banded family (n + m > '
-                    '1500) needs the banded vjp (autodiff/'
-                    'qp_diff_banded.py), which is not ported yet: '
-                    'ROADMAP.md queue 1 item 6')
-
-        tf = TorchFamily.from_family(fam, device=resolve_device(device))
+        device = resolve_device(device)
+        self._conic = bool(fam.soc_dims or fam.n_exp or fam.psd_dims
+                           or fam.pow_alphas)
+        self._banded = False
+        if self._conic:
+            from .conic_diff import make_conic_diff_solve
+            self._solve = make_conic_diff_solve(
+                TorchFamily.from_family(fam, device=device), settings)
+            return
         # gradient-quality tolerances by default (the reference's bar is
         # atol 1e-4 against cvxpylayers, its tests/test_diff.py:49,106);
         # float32 cannot reach 1e-8 residuals
-        tight = 1e-8 if tf.maps.dtype == torch.float64 else 1e-6
+        tight = 1e-8 if default_dtype(device) == torch.float64 else 1e-6
         settings = settings or ADMMSettings(eps_abs=tight, eps_rel=tight,
                                             max_iter=20000)
-        self._solve = make_diff_solve(tf, settings, shared_PA='auto',
-                                      pa_mask=pa_theta_mask(fam))
+        # the dense backward's (B, n+m, n+m) reduced KKT is about 830 MB per
+        # instance at charging T=1440, so long-horizon banded families take
+        # the banded vjp
+        struct = None
+        if banded is True or (banded == 'auto' and fam.n + fam.m > 1500):
+            from ..solvers.admm_banded import build_banded_structure
+            struct = build_banded_structure(fam.P_idx, fam.A_idx, fam.n,
+                                            fam.m)
+            if struct is None and banded is True:
+                raise ValueError('banded=True: family KKT pattern is not '
+                                 'block-banded')
+        if struct is not None:
+            from .qp_diff_banded import make_diff_solve_banded
+            self._banded = True
+            self._solve = make_diff_solve_banded(
+                TorchFamily.from_family(fam, device=device,
+                                        force_scatter=True),
+                struct, settings)
+        else:
+            self._solve = make_diff_solve(
+                TorchFamily.from_family(fam, device=device), settings,
+                shared_PA='auto', pa_mask=pa_theta_mask(fam))
 
     def _flatten_param(self, t, pi):
         if pi.coords is None:

@@ -1,19 +1,19 @@
-"""Runtime object behind generated solver packages (ADMM, conic ADMM and
-IPM engines).
+"""Runtime objects behind generated solver packages.
 
-Port of the JAX package's ``codegen/runtime.py`` ``CpgRuntime``: it plays
-the role of the reference's compiled pybind module + python wrapper
-(reference templates/cpg_solver.py.jinja2:38-213).  It holds the compiled
-family, caches theta between calls honouring ``updated_params``, resolves
-runtime settings through the registry, and warm-starts from the previous
-solution where the engine takes one (the ADMM engines, the conic ADMM
-included; as in the reference, the IPM is not warm-started).  With
-``gradient=True`` a QP-form package differentiates its last solve
-(``cpg_gradient``/``backward``: autodiff/qp_diff.py's implicit
-differentiation on the host in float64, as the reference's host branch);
-cone families and the interior-point engine raise until the conic
-differentiation is ported.  The explicit runtime arrives with a
-later slice of the port.
+Port of the JAX package's ``codegen/runtime.py``.  ``CpgRuntime`` (ADMM,
+banded ADMM, conic ADMM and IPM engines) plays the role of the reference's
+compiled pybind module + python wrapper (reference
+templates/cpg_solver.py.jinja2:38-213): it holds the compiled family,
+caches theta between calls honouring ``updated_params``, resolves runtime
+settings through the registry, and warm-starts from the previous solution
+where the engine takes one (the ADMM engines, the conic ADMM included; as
+in the reference, the IPM is not warm-started).  With ``gradient=True`` a
+package differentiates its last solve (``cpg_gradient``/``backward``),
+routed by the family whatever engine solved it: QP-form families by
+autodiff/qp_diff.py's implicit differentiation on the host in float64 (the
+reference's host branch), cone families by autodiff/conic_diff.py at B = 1
+on the runtime's device.  ``ExplicitRuntime`` serves ``solver='explicit'``
+packages: the lookup-table evaluator of solvers/explicit.py.
 """
 from __future__ import annotations
 
@@ -29,13 +29,9 @@ from ..autodiff.qp_diff import qp_vjp
 from ..canon.canonicalizer import Family, retrieve_duals, retrieve_primal
 from ..problem import SolverStats
 from ..runtime.solver import _status_str, make_compiled_solver
-from ..runtime.torch_family import TorchFamily, canon_batch, qp_bounds_batch
+from ..runtime.torch_family import (TorchFamily, canon_batch,
+                                    qp_bounds_batch, resolve_device)
 from ..solvers.registry import engine_registry
-
-_NO_GRADIENT = ('gradient=True on a cone family or a conic engine needs the '
-                'conic differentiation (autodiff/conic_diff.py), which is '
-                'not ported yet: ROADMAP.md queue 1 item 6')
-_GRADIENT_ENGINES = ('ADMM', 'ADMM_BANDED')
 
 
 def _pack_theta_cached(fam, prob, updated_params, cached):
@@ -66,8 +62,6 @@ class CpgRuntime:
         self.enable_settings = enable_settings or []
         self.solver = make_compiled_solver(family, solver_name, dtype=dtype,
                                            device=device)
-        if gradient and self.solver.solver_name not in _GRADIENT_ENGINES:
-            raise NotImplementedError(_NO_GRADIENT)
         # the banded engine takes the ADMM settings
         self._registry, self._aliases = engine_registry(
             self.solver.solver_name)
@@ -88,6 +82,7 @@ class CpgRuntime:
         self._theta = None
         self._ctx = None
         self._grad_tf = None
+        self._conic_diff = None
         # warm-start state persisted across cpg_solve calls, for engines
         # whose solve_batch takes one (parity: reference OSQP
         # warm_starting default-ON, osqp.py:102-115)
@@ -199,10 +194,51 @@ class CpgRuntime:
         return grads
 
     def _grad_theta(self, gx):
+        """dL/dtheta of the last solve for the seed gx (n,): cone families
+        through the conic differentiation, QP-form families through the
+        QP one (the reference's ``_grad_theta``)."""
+        fam = self.family
+        if fam.soc_dims or fam.n_exp or fam.psd_dims or fam.pow_alphas:
+            return self._grad_theta_conic(gx)
+        return self._grad_theta_qp(gx)
+
+    def _grad_theta_conic(self, gx):
+        """autodiff/conic_diff.py at B = 1 on the runtime's device: the
+        conic solution map re-solved at the last theta with
+        gradient-quality settings for the dtype (float64 ones are out of
+        float32's reach), then one transpose KKT solve."""
+        jf = self.solver.jf
+        if self._conic_diff is None:
+            from ..autodiff.conic_diff import make_conic_diff_solve
+            f32 = jf.maps.dtype == torch.float32
+            fam = self.family
+            if fam.n_exp or fam.psd_dims or fam.pow_alphas:
+                from ..solvers.conic_admm import ConicADMMSettings
+                tol = 1e-5 if f32 else 1e-8
+                stg = ConicADMMSettings(eps_abs=tol, eps_rel=tol,
+                                        max_iter=20000)
+            else:
+                from ..solvers.ipm import IPMSettings
+                stg = (IPMSettings.for_dtype(torch.float32, max_iter=100)
+                       if f32 else IPMSettings(max_iter=100, tol_feas=1e-10,
+                                               tol_gap=1e-10))
+            self._conic_diff = make_conic_diff_solve(jf, stg)
+        theta = torch.as_tensor(self._ctx['theta'], dtype=jf.maps.dtype,
+                                device=jf.maps.device)[None]
+        theta.requires_grad_()
+        x = self._conic_diff(theta)['x']
+        (dtheta,) = torch.autograd.grad(
+            x, theta, torch.as_tensor(gx, dtype=x.dtype,
+                                      device=x.device)[None])
+        return dtheta[0].detach().cpu().numpy()
+
+    def _grad_theta_qp(self, gx):
         """Implicit differentiation of the last QP solve on the host in
         float64 (the reference's QP branch, its grad template
         cpg_osqp_grad_compute.c.jinja2:432-531): autodiff/qp_diff.py's
-        ``qp_vjp`` at B = 1 on a float64 CPU copy of the family."""
+        ``qp_vjp`` at B = 1 on a float64 CPU copy of the family.  A QP
+        family solved by the IPM gives its slack s for the rows' values:
+        the ADMM's z is A x = l + [0; s]."""
         if self._grad_tf is None:
             self._grad_tf = TorchFamily.from_family(
                 self.family, dtype=torch.float64, device='cpu')
@@ -216,8 +252,14 @@ class CpgRuntime:
         def row(key):
             return torch.as_tensor(np.asarray(out[key][0],
                                               dtype=np.float64))[None]
+        if 's' in out:
+            z = l + torch.cat([torch.zeros((1, tf.n_zero),
+                                           dtype=torch.float64), row('s')],
+                              dim=1)
+        else:
+            z = row('z')
         zeros = torch.zeros((1, self.family.m), dtype=torch.float64)
-        return qp_vjp(tf, theta, row('x'), -row('y_canon'), row('z'),
+        return qp_vjp(tf, theta, row('x'), -row('y_canon'), z,
                       data['P'], data['q'], data['A'], l, u,
                       torch.as_tensor(gx, dtype=torch.float64)[None], zeros,
                       zeros[:, 0])[0].numpy()
@@ -230,3 +272,163 @@ class CpgRuntime:
 
     def backward(self, prob, **kwargs):
         return self.cpg_gradient(prob)
+
+
+class ExplicitRuntime:
+    """Runtime for solver='explicit' packages (the reference's PDAQP role;
+    its pdaqp.py and the explicit solve path of utils.py:1012-1067).  The
+    lookup table is enumerated at generate time (solvers/explicit.py) and
+    evaluated at B = 1 on ``device`` (CUDA unless given; no card and no
+    device raises), in float32, the table's precision, whatever the
+    package's dtype."""
+
+    def __init__(self, family: Family, explicit=1, prefix='', gradient=False,
+                 solver_opts=None, theta_ref=None, device=None,
+                 _saved_data=None):
+        opts = dict(solver_opts or {})
+        self.family = family
+        self.prefix = prefix
+        self.gradient_enabled = gradient
+        self.explicit = 2 if opts.get('dual') else explicit
+        self.device = resolve_device(device)
+        if _saved_data is not None:
+            self.data = _saved_data
+        else:
+            from ..solvers.explicit import (
+                build_explicit_data, enumerate_regions, extract_mpqp,
+                measure_coverage)
+            mp = extract_mpqp(family, theta_ref=theta_ref,
+                              theta_box=opts.get('theta_box'))
+            # capacity caps (reference pdaqp.py:83-84, README.md:216-217):
+            # max_floats bounds the table's storage; each region stores its
+            # primal feedbacks, optional dual feedbacks and its halfplanes,
+            # all affine in theta, so the budget becomes a region cap
+            max_regions = int(opts.get('max_regions', 500))
+            max_floats = float(opts.get('max_floats', 1e6))
+            nth = mp.F.shape[1] + 1
+            m_dual = (mp.G.shape[0] + mp.E.shape[0]) \
+                if self.explicit == 2 else 0
+            per_region = (family.n + m_dual + mp.G.shape[0]) * nth
+            floats_cap = max(1, int(max_floats // max(per_region, 1)))
+            if floats_cap < max_regions:
+                warnings.warn(
+                    f'max_floats={max_floats:g} limits the explicit table '
+                    f'to {floats_cap} regions (~{per_region} floats each); '
+                    f'max_regions={max_regions} is not reachable')
+                max_regions = floats_cap
+            regions = enumerate_regions(mp, max_regions=max_regions)
+            stored_idx = None
+            if opts.get('stored_vars') is not None:
+                stored_idx = _stored_idx(family, opts['stored_vars'])
+            self.data = build_explicit_data(
+                family, regions, mp, stored_idx=stored_idx,
+                dual=(self.explicit == 2), fp16=bool(opts.get('fp16', False)))
+            # the unreached-domain report: the fraction of sampled domain
+            # points that some region covers
+            self.data.coverage = measure_coverage(mp, regions)
+            if self.data.coverage < 0.999:
+                warnings.warn(
+                    f'explicit lookup table covers only '
+                    f'{100 * self.data.coverage:.1f}% of the sampled '
+                    'parameter domain; queries in uncovered areas return '
+                    'the nearest region\'s feedback (raise max_regions or '
+                    'shrink the domain)')
+        self._ctx = None
+        self._theta = None
+
+    @classmethod
+    def from_saved(cls, family, data, explicit=1, prefix='', gradient=False,
+                   device=None):
+        return cls(family, explicit=explicit, prefix=prefix,
+                   gradient=gradient, device=device, _saved_data=data)
+
+    def solve_batch(self, theta):
+        """theta (B, p) -> (x_store, y or None, region) on the device."""
+        from ..solvers.explicit import explicit_evaluate
+        return explicit_evaluate(self.data, np.atleast_2d(theta),
+                                 want_dual=(self.explicit == 2),
+                                 device=self.device)
+
+    def cpg_solve(self, prob, updated_params=None, **kwargs):
+        # theta caching as CpgRuntime's; the explicit evaluator has no
+        # runtime settings (nor has the reference's pdaqp), so every
+        # setting is warned about and ignored
+        kwargs.pop('verbose', None)
+        for k in kwargs:
+            warnings.warn(f'ignoring unknown setting {k!r} '
+                          '(explicit solver has no runtime settings)')
+        fam = self.family
+        self._theta = _pack_theta_cached(fam, prob, updated_params,
+                                         self._theta)
+        theta = self._theta
+        t0 = time.perf_counter()
+        xs, y, region = self.solve_batch(theta[None, :])
+        xs = xs[0].cpu().numpy()
+        region = int(region[0])
+        solve_time = time.perf_counter() - t0
+        x_full = np.zeros(fam.n)
+        x_full[self.data.store_idx] = xs.astype(float)
+        primal = retrieve_primal(fam, x_full)
+        if y is not None:
+            duals = retrieve_duals(fam, y[0].cpu().numpy().astype(float))
+        else:
+            duals = [None] * len(fam.constr_records)
+        # the objective on demand (reference cpg_obj, utils.py:1054-1067)
+        P, q, d, _, _ = fam.canon_numpy(theta)
+        obj = float(0.5 * x_full @ P @ x_full + q @ x_full + d)
+        if fam.is_maximization:
+            obj = -obj
+        stats = SolverStats(solver_name='EXPLICIT', solve_time=solve_time,
+                            num_iters=1, extra=dict(region=region))
+        self._ctx = dict(theta=theta.copy(), region=region)
+        return prob.unpack_results('optimal', obj, primal, duals, stats)
+
+    def cpg_gradient(self, prob):
+        """The region's feedback transposed on the host (reference pdaqp
+        gradient, pdaqp.py:237-261; writer.py:418-516)."""
+        if self._ctx is None:
+            raise RuntimeError('solve before calling cpg_gradient')
+        fam = self.family
+        full_g = np.zeros(fam.n)
+        for vi in fam.user_vars:
+            var = [v for v in prob.variables() if v.id == vi.vid]
+            if var and var[0].gradient is not None:
+                full_g[vi.offset:vi.offset + vi.size] = np.ravel(
+                    np.asarray(var[0].gradient, dtype=float), order='F')
+        gx_store = full_g[self.data.store_idx]
+        FB = np.asarray(self.data.FB[self._ctx['region']], dtype=float)
+        p_r = FB.shape[1] - 1
+        dtheta = np.zeros(fam.p)
+        dtheta[self.data.th_sel] = FB[:, :p_r].T @ gx_store
+        grads = fam.unpack_theta_grad(dtheta)
+        for p in prob.parameters():
+            if p.name() in grads:
+                p.gradient = grads[p.name()]
+        return grads
+
+    def forward(self, prob, updated_params=None, **kwargs):
+        val = self.cpg_solve(prob, updated_params=updated_params, **kwargs)
+        return [v.value for v in prob.variables()], dict(
+            obj=val, region=self._ctx['region'])
+
+    def backward(self, prob, **kwargs):
+        return self.cpg_gradient(prob)
+
+
+def _stored_idx(family: Family, stored_vars):
+    """Map stored_vars (Variable or Index-of-Variable expressions) to
+    global x indices (reference pdaqp.py:143-199 stored_vars)."""
+    from ..expressions import Index, Variable
+    idx = []
+    for sv in stored_vars:
+        if isinstance(sv, Variable):
+            vi = [v for v in family.var_info if v.vid == sv.id][0]
+            idx.extend(range(vi.offset, vi.offset + vi.size))
+        elif isinstance(sv, Index) and isinstance(sv.args[0], Variable):
+            base = sv.args[0]
+            vi = [v for v in family.var_info if v.vid == base.id][0]
+            idx.extend((vi.offset + np.asarray(sv.flat_idx)).tolist())
+        else:
+            raise ValueError('stored_vars entries must be variables or '
+                             'simple variable slices')
+    return np.array(sorted(set(idx)), dtype=int)

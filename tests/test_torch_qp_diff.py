@@ -187,29 +187,45 @@ def test_cpg_gradient_matches_reference(tmp_path):
 
 
 def test_cone_families_raise(tmp_path):
+    """Cone families and conic engines no longer raise: TorchLayer takes an
+    SOC family to the conic differentiation, generate_code(gradient=True)
+    builds a gradient package for it, and a QP family differentiates
+    through the IPM (its slack giving the rows' values) as through the
+    ADMM."""
     u = ct.Variable(2, name='u')
     f = ct.Parameter(2, name='f')
     f.value = np.ones(2)
     prob = ct.Problem(ct.Minimize(ct.sum_squares(u - f)),
                       [ct.norm(u, 2) <= 1.0])
-    with pytest.raises(NotImplementedError, match='conic_diff.*item 6'):
-        ct.TorchLayer(prob, parameters=[f], variables=[u], device='cpu')
-    with pytest.raises(NotImplementedError, match='conic_diff.*item 6'):
-        cpg.generate_code(prob, code_dir=str(tmp_path / 'c'), gradient=True,
-                          device='cpu')
-    # a QP family differentiates only through a QP-form engine
+    layer = ct.TorchLayer(prob, parameters=[f], variables=[u], device='cpu')
+    assert layer._conic and not layer._banded
+    mod = cpg.generate_code(prob, code_dir=str(tmp_path / 'c'),
+                            gradient=True, device='cpu')
+    assert mod._runtime.solver.solver_name == 'IPM'
+    prob.solve(method='CPG')
+    u.gradient = np.array([1.0, 0.0])
+    # u = f / |f| on the boundary: du0/df = (I - u u') / |f| row 0
+    np.testing.assert_allclose(mod.cpg_gradient(prob)['f'],
+                               [0.5 / np.sqrt(2), -0.5 / np.sqrt(2)],
+                               rtol=0, atol=1e-6)
     x = ct.Variable(2, name='x')
     b = ct.Parameter(2, name='b')
-    b.value = np.ones(2)
+    b.value = np.array([1.0, -1.0])
     qp = ct.Problem(ct.Minimize(ct.sum_squares(x - b)), [x >= 0])
-    with pytest.raises(NotImplementedError, match='conic_diff.*item 6'):
-        cpg.generate_code(qp, code_dir=str(tmp_path / 'q'), solver='IPM',
-                          gradient=True, device='cpu')
+    grads = []
+    for solver in ('IPM', 'ADMM'):
+        mod = cpg.generate_code(qp, code_dir=str(tmp_path / solver),
+                                solver=solver, gradient=True, device='cpu')
+        qp.solve(method='CPG')
+        x.gradient = np.ones(2)
+        grads.append(mod.cpg_gradient(qp)['b'])
+    np.testing.assert_allclose(grads[0], [1.0, 0.0], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(grads[1], grads[0], rtol=0, atol=1e-9)
 
 
 def test_long_horizon_banded_family_raises():
-    """n + m > 1500 with a banded KKT: the reference's banded vjp, not
-    ported yet."""
+    """n + m > 1500 with a banded KKT no longer raises: TorchLayer takes the
+    banded vjp (autodiff/qp_diff_banded.py), as the reference's does."""
     T = 600
     x = ct.Variable(T, name='x')
     r = ct.Parameter(T, name='r')
@@ -217,5 +233,5 @@ def test_long_horizon_banded_family_raises():
     prob = ct.Problem(ct.Minimize(ct.sum_squares(x - r)
                                   + ct.sum_squares(ct.diff(x))),
                       [x >= 0, x <= 1])
-    with pytest.raises(NotImplementedError, match='qp_diff_banded'):
-        ct.TorchLayer(prob, parameters=[r], variables=[x], device='cpu')
+    layer = ct.TorchLayer(prob, parameters=[r], variables=[x], device='cpu')
+    assert layer._banded and not layer._conic

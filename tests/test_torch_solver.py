@@ -218,12 +218,15 @@ def test_device_unset_without_cuda_raises(monkeypatch, tmp_path):
 
 
 def test_unported_engines_raise(tmp_path):
-    """The engines the port does not have yet raise NotImplementedError
-    naming their ROADMAP item (the explicit solver, gradients through a
-    conic engine); the engines that raised before they were ported now
-    route to their solvers: the IPM aliases, the conic ADMM (SCS), the
-    long-horizon MPC family (the banded solver) and gradient=True on a
-    QP-form package."""
+    """The engines that raised before they were ported now route to their
+    solvers: the IPM aliases, the conic ADMM (SCS), the long-horizon MPC
+    family (the banded solver), gradient=True on a QP-form package through
+    the ADMM and through the conic engines (ECOS, SCS), and the explicit
+    solver (on a family with constant P and A and a bounded parameter
+    domain; MPC's A depends on its parameters, which the explicit solver
+    refuses, as the reference's does)."""
+    from cvxpygen_tpu_torch.codegen.runtime import ExplicitRuntime
+    from cvxpygen_tpu_torch.solvers.explicit import ExplicitError
     pt = _problems_torch()
     _, port = _mpc_pair()
     fam = canonicalize(port)
@@ -233,15 +236,24 @@ def test_unported_engines_raise(tmp_path):
     for solver in ('IPM', 'ECOS', 'CLARABEL', 'QOCO', 'QOCOGEN'):
         assert make_compiled_solver(fam, solver,
                                     device='cpu').solver_name == 'IPM'
-    for kw in (dict(solver='explicit'), dict(solver='ECOS', gradient=True),
+    with pytest.raises(ExplicitError, match='parameter-independent A'):
+        cpg.generate_code(port, code_dir=str(tmp_path / 'p'),
+                          solver='explicit', device='cpu')
+    x = cvxpygen_tpu_torch.Variable(2, name='x')
+    b = cvxpygen_tpu_torch.Parameter(2, name='b')
+    box = cvxpygen_tpu_torch.Problem(
+        cvxpygen_tpu_torch.Minimize(cvxpygen_tpu_torch.sum_squares(x - b)),
+        [x >= 0, b >= -1, b <= 1])
+    mod = cpg.generate_code(box, code_dir=str(tmp_path / 'e'),
+                            solver='explicit', device='cpu')
+    assert isinstance(mod._runtime, ExplicitRuntime)
+    for kw in (dict(solver='SCS'), dict(solver='ADMM', gradient=True),
+               dict(solver='ECOS', gradient=True),
                dict(solver='SCS', gradient=True)):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            cpg.generate_code(port, code_dir=str(tmp_path / 'p'),
-                              device='cpu', **kw)
-    for kw in (dict(solver='SCS'), dict(solver='ADMM', gradient=True)):
         mod = cpg.generate_code(port, code_dir=str(tmp_path / 'p'),
                                 device='cpu', **kw)
         assert mod._runtime.requested_solver == kw['solver']
+        assert mod._runtime.gradient_enabled == kw.get('gradient', False)
     long_mpc = canonicalize(pt.assign_MPC(pt.MPC_problem(H=30)))
     assert long_mpc.n >= 512
     assert make_compiled_solver(long_mpc, 'ADMM',
