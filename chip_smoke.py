@@ -229,12 +229,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    over the domain box: its time (CUDA events), x within 1e-4 of the
    oracle on 64 and within 1e-5 of the CPU evaluator on all, and a
    chunked evaluation within 1e-5 of the whole;
-18. a JSON line with each kernel's launches, error, times and bound;
-19. the card's name and power limit (nvidia-smi), then the result line.
+18. runtime/profiling.py's stage split (canonicalize, equilibrate, KKT
+   assembly, the Newton-Schulz factor, one check interval of K3, the whole
+   solve; CUDA events) of MPC per-instance at B=2048 on the K3 route
+   (phase 6's settings, 12 warm sweeps), and the device's busy share of
+   that solve from a trace (runtime/profiling.py::trace; the trace must
+   show device time and K3's kernel);
+19. the parallel layer on a 2-rank gloo world, both ranks on cuda:0 (NCCL
+   refuses two ranks on one card): sharded_solve of the shared MPC batch
+   (B=2048, the bench's settings: K1 on each rank at the whole batch's rho
+   group, 1024), of the K3 route (phase 6's batch) and of the K2 route
+   (the general row's settings, B=256: K2 on each rank at the whole
+   batch's block, 8), each against rank 0's single-process solve (equal
+   status and iterations, x within SHARD_TOL; bitwise equality printed);
+   the scenario consensus of tests/test_consensus.py's family at B=2048
+   (K1 inside; equal outer iterations, zbar within CONSENSUS_TOL of one
+   process) and at B=16, whose rho group of 16 no rank of 8 can hold (it
+   must raise); make_sharded_qp_solve on a 1 x 2 ('batch', 'model') mesh
+   at B=64 against the replicated torch loop (equal status and
+   iterations, x within SHARD_TOL); K1's, K2's and K3's launches of the
+   sharded runs join the kernels line;
+20. the per-instance MPC solve (K3 route, B=256) exported by
+   runtime/aot.py, loaded and run in a fresh process that builds no
+   Family (``--run-exported``), against the live solve (equal status and
+   iterations, x within SHARD_TOL), with both times and the exported
+   program's K3 launches (added to the kernels line);
+21. a JSON line with each kernel's launches, error, times and bound;
+22. the card's name and power limit (nvidia-smi), then the result line.
 
 ``python3 chip_smoke.py --block-sweep`` instead builds the kernels and runs
 K2 on the portfolio and MPC general batches at several blocks, printing
 instances solved, mean iterations and time per block.
+``python3 chip_smoke.py --nccl`` builds the kernels and runs phase 19 over
+every card of the host, one NCCL rank per card (1024 instances a rank).
 
 It needs a CUDA device and the repository beside it: without either it
 exits non-zero and prints no result.
@@ -4238,6 +4265,400 @@ def adp_batch(fam, prob, B):
     return theta
 
 
+# phases 18-20: the per-stage profile, the parallel layer, the AOT artifact
+PARALLEL_RANKS = 2
+PARALLEL_TIMEOUT_S = 300
+# instances per rank: the MPC batches and the consensus one hold one rho
+# group of K1 on each rank (1024: the rule's group at B=2048 and above);
+# the small consensus batch (8 a rank) has a group of the whole batch, which
+# no rank holds
+RANK_B = 1024
+RANK_B_SMALL = 8
+CONSENSUS_K = 2
+CONSENSUS_SETTINGS = dict(rho_c=2.0, outer_iters=100, eps_consensus=1e-4)
+# consensus: the sharded zbar against the single-process one, at equal
+# outer iterations; the mean over the ranks sums in another order than
+# torch.sum over the whole batch, and float32 roundoff then moves each outer
+# iterate slightly (an H100 read 8.382e-09: PERF.md, Findings)
+CONSENSUS_TOL = 1e-6
+B_MODEL = 64
+# the K2 route's sharded batch: 128 instances a rank, 16 of K2's blocks of 8
+B_FULL = 256
+B_AOT = 256
+# x of a sharded, model-axis or exported solve against the single-process
+# live one, relative to max(1, |x|_inf) per instance, at equal iterations
+# (the model axis, whose row-block products sum in another order, read
+# 2.440e-06 on an H100: PERF.md, Findings)
+SHARD_TOL = 1e-5
+
+
+def k3_route_settings():
+    """Phase 6's K3 route: the general row's settings (bench.py:312-314)
+    with use_pallas='auto' and 12 warm Newton-Schulz sweeps."""
+    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+    return ADMMSettings(**dict(GENERAL_SETTINGS, use_pallas='auto',
+                               ns_adapt_iters=12))
+
+
+def phase_profile(card):
+    """Phase 18: runtime/profiling.py's stage split of the per-instance MPC
+    solve (the K3 route) at the general row's B."""
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.runtime.profiling import profile_qp_solve, trace
+    from cvxpygen_tpu_torch.runtime.solver import CompiledQPSolver
+    from cvxpygen_tpu_torch.runtime.torch_family import TorchFamily
+    prob = assign_mpc(mpc_problem(ct))
+    fam = canonicalize(prob)
+    tf = TorchFamily.from_family(fam)
+    theta = x_init_batch(fam, prob, B_MAIN)
+    st = k3_route_settings()
+    prof = profile_qp_solve(tf, theta, st, reps=3)
+    print(f'# phase 18: profile_qp_solve, MPC per-instance B={B_MAIN}, K3 '
+          'route: ' + ', '.join(f'{k} {v:.4f}' for k, v in prof.items())
+          + f' [{card}]')
+    check(all(math.isfinite(v) and v > 0 for v in prof.values()),
+          f'profile: {prof}')
+    # the device's busy share of the whole solve: its kernels' time in a
+    # torch.profiler trace of one solve over the untraced solve's time
+    solver = CompiledQPSolver(fam, settings=st)
+    trace_dir = os.path.join(ROOT, 'build', 'chip_smoke', 'trace')
+    with trace(trace_dir) as tr:
+        solver.solve_batch(theta, shared_PA=False)
+        torch.cuda.synchronize()
+    # the kernels' own events (device type CUDA): an operator's event
+    # carries its kernels' time too, so summing every event counts it twice
+    kernels = [e for e in tr.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k3_ms = sum(e.self_device_time_total for e in kernels
+                if 'iterate_resident_kernel' in e.key
+                or 'iterate_stream_kernel' in e.key) / 1e3
+    busy = device_ms / prof['total_solve_ms']
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    print(f'# phase 18: trace of one solve ({trace_dir}/trace.json): '
+          f'device time {device_ms:.3f} ms, {100 * busy:.1f}% of the '
+          f'untraced {prof["total_solve_ms"]:.3f} ms (idle '
+          f'{100 * (1 - busy):.1f}%); K3 kernels {k3_ms:.3f} ms; the '
+          'largest: ' + '; '.join(
+              f'{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms '
+              f'({e.count})' for e in top))
+    check(device_ms > 0, 'phase 18: the trace shows no device time')
+    check(k3_ms > 0, 'phase 18: the trace shows no K3 kernel')
+    return prof
+
+
+def consensus_problem(ct, n=6, m=4):
+    """tests/test_consensus.py::_family in the port's modeling layer."""
+    G = np.random.default_rng(0).standard_normal((m, n))
+    v = ct.Variable(n, name='v')
+    c = ct.Parameter(n, name='c')
+    d0 = ct.Parameter(m, name='d0')
+    prob = ct.Problem(ct.Minimize(ct.sum_squares(v) + c @ v), [G @ v <= d0])
+    c.value, d0.value = np.zeros(n), np.ones(m)
+    return prob
+
+
+def consensus_batch(fam, B, n=6, m=4, seed=3):
+    """tests/test_consensus.py::_scenarios: c ~ N(0, 1), d0 = |N(0, 1)| + 1."""
+    rng = np.random.default_rng(seed)
+    cs = rng.standard_normal((B, n))
+    ds = np.abs(rng.standard_normal((B, m))) + 1.0
+    return np.stack([fam.pack_theta(values={'c': cs[b], 'd0': ds[b]})
+                     for b in range(B)])
+
+
+def _host(out):
+    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+            for k, v in out.items()}
+
+
+def _parallel_wrappers():
+    """The wrappers of the kernels that phase 19 drives, by name."""
+    from cvxpygen_tpu_torch.ops import admm_full_kernel as k2
+    from cvxpygen_tpu_torch.ops import admm_kernel as k3
+    from cvxpygen_tpu_torch.ops import admm_shared_kernel as k1
+    return dict(K1=k1.admm_shared_solve, K2=k2.admm_solve_full,
+                K3=k3.admm_iterate)
+
+
+def _counted(fn, warm=True):
+    """fn() once to warm up (when ``warm``), then once more with K1's, K2's
+    and K3's counts set to 0 just before it and read just after: (output,
+    seconds, launches by kernel name)."""
+    wrappers = _parallel_wrappers()
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (_host(out), time.perf_counter() - t0,
+            {k: w.launches for k, w in wrappers.items()})
+
+
+def _parallel_work(rank, world):
+    """What each rank of phase 19 runs; rank 0 then runs the single-process
+    references."""
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.parallel import (consensus_solve, make_mesh,
+                                             sharded_solve)
+    from cvxpygen_tpu_torch.parallel.mesh import make_sharded_qp_solve
+    from cvxpygen_tpu_torch.runtime.solver import CompiledQPSolver
+    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+
+    prob = assign_mpc(mpc_problem(ct))
+    fam = canonicalize(prob)
+    theta = x_init_batch(fam, prob, RANK_B * world)
+    cfam = canonicalize(consensus_problem(ct))
+    ctheta = consensus_batch(cfam, RANK_B * world)
+    sel = [('v', np.arange(CONSENSUS_K))]
+    shared = CompiledQPSolver(fam, settings=ADMMSettings(**BENCH_SETTINGS))
+    per = CompiledQPSolver(fam, settings=k3_route_settings())
+    full = CompiledQPSolver(fam, settings=ADMMSettings(**GENERAL_SETTINGS))
+    st_model = ADMMSettings(**dict(GENERAL_SETTINGS, use_pallas='never',
+                                   ns_adapt_iters=12))
+    mesh = make_mesh(axes=('batch',))
+    res = dict(
+        shared=_counted(lambda: sharded_solve(shared, theta, mesh)),
+        per_instance=_counted(lambda: sharded_solve(per, theta, mesh,
+                                                    shared_PA=False)),
+        full=_counted(lambda: sharded_solve(full, theta[:B_FULL], mesh,
+                                            shared_PA=False)),
+        consensus=_counted(lambda: consensus_solve(
+            cfam, ctheta, sel, mesh=mesh, **CONSENSUS_SETTINGS)))
+    try:
+        consensus_solve(cfam, consensus_batch(cfam, RANK_B_SMALL * world),
+                        sel, mesh=mesh, **CONSENSUS_SETTINGS)
+        res['consensus_small'] = None
+    except ValueError as e:
+        res['consensus_small'] = str(e)
+    mesh2 = make_mesh(axes=('batch', 'model'), shape=(1, world))
+    model = make_sharded_qp_solve(shared.jf, mesh2, st_model)
+    res['model'] = _counted(lambda: model(theta[:B_MODEL]), warm=False)
+    if rank == 0:
+        res['single'] = dict(
+            shared=_counted(lambda: shared.solve_batch(theta)),
+            per_instance=_counted(lambda: per.solve_batch(
+                theta, shared_PA=False)),
+            full=_counted(lambda: full.solve_batch(theta[:B_FULL],
+                                                   shared_PA=False)),
+            consensus=_counted(lambda: consensus_solve(
+                cfam, ctheta, sel, **CONSENSUS_SETTINGS)),
+            model=_counted(lambda: per.solve_batch(
+                theta[:B_MODEL], settings=st_model, shared_PA=False),
+                warm=False))
+    return res
+
+
+def parallel_rank(rank, world, backend, store_file, out_dir):
+    """One rank of phase 19's world.  'gloo': every rank on cuda:0 (NCCL
+    refuses two ranks on one card); 'nccl': rank r on cuda:r.  Writes its
+    results to ``<out_dir>/rank<r>.pkl``."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    torch.cuda.set_device(rank if backend == 'nccl' else 0)
+    dist.init_process_group(
+        backend, store=dist.FileStore(store_file, world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S // 2))
+    try:
+        res = _parallel_work(rank, world)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f'rank{rank}.pkl'), 'wb') as f:
+        pickle.dump(res, f)
+
+
+def x_gap(a, b):
+    """Largest |a - b| per instance relative to max(1, |b|_inf)."""
+    scale = np.maximum(1.0, np.max(np.abs(b), axis=1))
+    return float(np.max(np.max(np.abs(a - b), axis=1) / scale))
+
+
+def phase_parallel(card, world=PARALLEL_RANKS, backend='gloo'):
+    """Phase 19: a ``world``-rank world through parallel/ (by default two
+    gloo ranks on cuda:0; ``--nccl``: one NCCL rank per card): the shared
+    MPC batch (K1 at the whole batch's rho group on each rank), the
+    per-instance K3 route, the K2 route (K2 at the whole batch's block), the
+    scenario consensus and a 1 x world model-axis solve, each against rank
+    0's single-process run.  Returns K1's, K2's and K3's launches on the
+    sharded runs (all ranks), by name."""
+    import pickle
+    import shutil
+    out_dir = os.path.join(ROOT, 'build', 'chip_smoke', 'parallel')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ctx = multiprocessing.get_context('spawn')
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=parallel_rank,
+                         args=(r, world, backend,
+                               os.path.join(out_dir, 'store'), out_dir))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(PARALLEL_TIMEOUT_S)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f'phase 19: rank exit codes {[p.exitcode for p in procs]}')
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f'rank{r}.pkl'), 'rb') as f:
+            ranks.append(pickle.load(f))
+    single = ranks[0]['single']
+    where = 'cuda:0' if backend == 'gloo' else f'cuda:0-{world - 1}'
+    print(f'# phase 19: {world}-rank {backend} world on {where}, '
+          f'{time.perf_counter() - t0:.1f} s with start-up [{card}]')
+    launches = dict(K1=0, K2=0, K3=0)
+    for name, kernel in (('shared', 'K1'), ('per_instance', 'K3'),
+                         ('full', 'K2'), ('consensus', 'K1'),
+                         ('model', None)):
+        ref, t_ref, s_n = single[name]
+        for r, res in enumerate(ranks):
+            out, dt, n = res[name]
+            for k in launches:
+                launches[k] += n[k]
+            counts = ', '.join(f'{k} {n[k]}' for k in n)
+            counts_ref = ', '.join(str(s_n[k]) for k in s_n)
+            if name == 'consensus':
+                gap = float(np.max(np.abs(out['z_consensus']
+                                          - ref['z_consensus'])))
+                print(f'# phase 19: consensus B={RANK_B * world} rank {r}: '
+                      f'outer iterations {out["outer_iters"]} (single '
+                      f'{ref["outer_iters"]}), solved {out["solved"]}, '
+                      f'residual {float(out["consensus_residual"]):.3e}, '
+                      f'|zbar - single|_inf {gap:.3e}, x gap '
+                      f'{x_gap(out["x"], ref["x"]):.3e}; {1e3 * dt:.3f} ms '
+                      f'(single {1e3 * t_ref:.3f}), launches {counts} '
+                      f'(single {counts_ref})')
+                check(out['solved'] == ref['solved']
+                      and out['outer_iters'] == ref['outer_iters']
+                      and gap <= CONSENSUS_TOL,
+                      f'consensus rank {r}: outer iterations '
+                      f'{out["outer_iters"]} against {ref["outer_iters"]}, '
+                      f'zbar gap {gap:.3e}')
+                check(n['K1'] > 0, 'consensus: K1 was not launched')
+                continue
+            same = all(np.array_equal(out[k], ref[k]) for k in out)
+            n_it = int(np.sum(out['iters'] != ref['iters']))
+            gap = x_gap(out['x'], ref['x'])
+            obj, obj_ref = out['obj'] + out['d'], ref['obj'] + ref['d']
+            obj_gap = float(np.max(np.abs(obj - obj_ref)
+                                   / np.maximum(1.0, np.abs(obj_ref))))
+            print(f'# phase 19: {name} rank {r}: bitwise {same}, x gap '
+                  f'{gap:.3e}, objective gap {obj_gap:.3e}, iterations '
+                  f'differ on {n_it} of {len(ref["iters"])}, mean iters '
+                  f'{float(np.mean(out["iters"])):.2f} (single '
+                  f'{float(np.mean(ref["iters"])):.2f}), solved '
+                  f'{float(np.mean(out["status"] == 1))}; {1e3 * dt:.3f} ms '
+                  f'(single {1e3 * t_ref:.3f}); launches {counts} '
+                  f'(single {counts_ref})')
+            check(np.all(out['status'] == 1), f'{name} rank {r}: unsolved')
+            check(n_it == 0 and gap <= SHARD_TOL,
+                  f'{name} rank {r}: {n_it} iterations differ, x gap {gap}')
+            check(kernel is None or n[kernel] > 0,
+                  f'{name}: {kernel} was not launched')
+    msg = ranks[0]['consensus_small']
+    small = RANK_B_SMALL * world
+    print(f'# phase 19: consensus B={small} over {world} ranks raises: {msg}')
+    check(msg is not None and f'({small} instances)' in msg
+          and f'holds {RANK_B_SMALL}' in msg,
+          f'consensus B={small}: no rho-group error')
+    return launches
+
+
+def run_exported(path, theta_file, out_file):
+    """``--run-exported``: phase 20's fresh process.  Loads the program,
+    solves theta (one warm-up call, then three timed by CUDA events, K3's
+    launches counted) and saves the result; it builds no Family."""
+    import gc
+    sys.path.insert(0, ROOT)
+    from cvxpygen_tpu_torch.canon.canonicalizer import Family
+    from cvxpygen_tpu_torch.ops import admm_kernel as k3
+    from cvxpygen_tpu_torch.runtime.aot import load_exported
+    t0 = time.perf_counter()
+    call = load_exported(path)
+    t_load = time.perf_counter() - t0
+    theta = np.load(theta_file)
+    t0 = time.perf_counter()
+    call(theta)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    k3.admm_iterate.launches = 0
+    reps = 3
+    ms, out = cuda_ms(lambda: call(theta), reps)
+    families = sum(type(o) is Family for o in gc.get_objects())
+    x, _, obj, iters, solved = (t.cpu().numpy() for t in out)
+    np.savez(out_file, x=x, obj=obj, iters=iters, solved=solved, ms=ms,
+             launches=k3.admm_iterate.launches / reps, families=families,
+             t_load=t_load, t_first=t_first)
+
+
+def phase_aot(card):
+    """Phase 20: the per-instance MPC solve (K3 route) exported at B=256,
+    loaded and run in a fresh process, against the live solve.  Returns
+    K3's launches of one exported call."""
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.ops import admm_kernel as k3
+    from cvxpygen_tpu_torch.runtime.aot import export_qp_solver
+    from cvxpygen_tpu_torch.runtime.solver import CompiledQPSolver
+    prob = assign_mpc(mpc_problem(ct))
+    fam = canonicalize(prob)
+    st = k3_route_settings()
+    solver = CompiledQPSolver(fam, settings=st)
+    theta = x_init_batch(fam, prob, B_AOT)
+    out_dir = os.path.join(ROOT, 'build', 'chip_smoke', 'aot')
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    path, _ = export_qp_solver(solver.jf, B_AOT, st, cache_dir=out_dir)
+    t_export = time.perf_counter() - t0
+    solver.solve_batch(theta, shared_PA=False)
+    k3.admm_iterate.launches = 0
+    live_ms, live = cuda_ms(lambda: solver.solve_batch(theta,
+                                                       shared_PA=False), 3)
+    live_launches = k3.admm_iterate.launches / 3
+    theta_file = os.path.join(out_dir, 'theta.npy')
+    out_file = os.path.join(out_dir, 'exported.npz')
+    np.save(theta_file, theta)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    '--run-exported', path, theta_file, out_file],
+                   check=True, timeout=PARALLEL_TIMEOUT_S)
+    t_load = time.perf_counter() - t0
+    exp = np.load(out_file)
+    live = _host(live)
+    same = (np.array_equal(exp['x'], live['x'])
+            and np.array_equal(exp['iters'], live['iters']))
+    gap = x_gap(exp['x'], live['x'])
+    n_it = int(np.sum(exp['iters'] != live['iters']))
+    print(f'# phase 20: export MPC per-instance B={B_AOT} (K3 route) '
+          f'{t_export:.1f} s -> {os.path.basename(path)}; fresh process '
+          f'{t_load:.1f} s (load {float(exp["t_load"]):.1f} s, first call '
+          f'{float(exp["t_first"]):.1f} s; Family objects there: '
+          f'{int(exp["families"])}): '
+          f'bitwise {same}, x gap {gap:.3e}, iterations differ on {n_it}, '
+          f'solved {float(np.mean(exp["solved"]))}; exported '
+          f'{float(exp["ms"]):.3f} ms per call, live {live_ms:.3f} ms; K3 '
+          f'launches per call {float(exp["launches"]):.1f} (live '
+          f'{live_launches:.1f}) [{card}]')
+    check(int(exp['families']) == 0, 'the exported run built a Family')
+    check(bool(np.all(exp['solved'])) and n_it == 0 and gap <= SHARD_TOL,
+          f'exported solve: {n_it} iterations differ, x gap {gap:.3e}')
+    check(np.array_equal(exp['solved'], live['solved']), 'solved differs')
+    check(float(exp['launches']) > 0, 'the exported program launched no K3')
+    return int(round(float(exp['launches'])))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke.py: no CUDA device')
@@ -4246,9 +4667,15 @@ def main():
     from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
     from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
     t_start = time.perf_counter()
+    if sys.argv[1:2] == ['--run-exported']:
+        run_exported(*sys.argv[2:5])
+        return
     card = phase_build()
     if sys.argv[1:] == ['--block-sweep']:
         block_sweep(card)
+        return
+    if sys.argv[1:] == ['--nccl']:
+        phase_parallel(card, torch.cuda.device_count(), 'nccl')
         return
     k1_numbers = phase_kernels(card)
     k1_launches, refs = phase_main_path(card, k1_numbers['ms'])
@@ -4273,6 +4700,11 @@ def main():
     for name in ('ldl_factor', 'ldl_inverse'):
         ldl_launches[name] += diff_launches[name]
     phase_explicit(card)
+    phase_profile(card)
+    par = phase_parallel(card)
+    k1_launches += par['K1']
+    k2_launches += par['K2']
+    k3_launches += par['K3'] + phase_aot(card)
     kernels = [
         dict(name='admm_shared_solve', route='cuda',
              source='cvxpygen_tpu_torch/csrc/admm_shared.cu',

@@ -14,7 +14,10 @@ Three pieces live here:
   kernel in ``csrc/admm_iterate.cu`` (built with nvcc at first use, bound
   with ctypes) and counts the launch in ``admm_iterate.launches``; on CPU
   tensors it runs the plain version.  It never falls back: a build, launch
-  or shape the kernel cannot take raises.
+  or shape the kernel cannot take raises.  The solver calls it through
+  the operator ``torch.ops.cvxpygen_tpu_torch.admm_iterate``
+  (``admm_iterate_op``, with a fake implementation for tracing), since a
+  ctypes launch is invisible to ``torch.export``.
 - ``admm_iterate_plain``: the same arithmetic in torch (the JAX package's
   ``admm_iterate_reference``).  The CPU tests hold it against the Pallas
   kernel in interpret mode, and ``chip_smoke.py`` holds the CUDA kernel
@@ -171,3 +174,24 @@ def admm_iterate(Minv, A, q, l, u, rho_vec, x, z, y, sigma, alpha, n_iters,
 
 
 admm_iterate.launches = 0
+
+
+@torch.library.custom_op('cvxpygen_tpu_torch::admm_iterate', mutates_args=())
+def admm_iterate_op(Minv: torch.Tensor, A: torch.Tensor, q: torch.Tensor,
+                    l: torch.Tensor, u: torch.Tensor, rho_vec: torch.Tensor,
+                    x: torch.Tensor, z: torch.Tensor, y: torch.Tensor,
+                    sigma: float, alpha: float, n_iters: int,
+                    block: int) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """``admm_iterate`` as an operator that tracers see
+    (``torch.ops.cvxpygen_tpu_torch.admm_iterate``): the solve's loop calls
+    it, so a program that ``torch.export`` records from the loop launches
+    K3 on the card (runtime/aot.py)."""
+    return admm_iterate(Minv, A, q, l, u, rho_vec, x, z, y, sigma, alpha,
+                        n_iters, block=block)
+
+
+@admm_iterate_op.register_fake
+def _admm_iterate_fake(Minv, A, q, l, u, rho_vec, x, z, y, sigma, alpha,
+                       n_iters, block):
+    return torch.empty_like(x), torch.empty_like(z), torch.empty_like(y)

@@ -92,12 +92,14 @@ class CompiledQPSolver:
         self._pa_mask = pa_theta_mask(family)
 
     def solve_batch(self, theta, settings: ADMMSettings = None,
-                    x0=None, y0=None, shared_PA='auto'):
+                    x0=None, y0=None, shared_PA='auto', group=None):
         """Batched solve.  ``shared_PA`` selects the shared-KKT path (one
         factorization for the whole batch, every matvec a full-batch GEMM):
         'auto' takes it when the rows share the P/A-relevant theta entries,
         True asserts that they do, False always takes the per-instance
-        path (solvers/admm.py::admm_solve: canonical P and A per row)."""
+        path (solvers/admm.py::admm_solve: canonical P and A per row).
+        ``group``: a process group over whose ranks the batch is sharded
+        (parallel/mesh.py::sharded_solve); theta is then this rank's rows."""
         st = settings or self.settings
         jf = self.jf
         if self._use_shared(theta, shared_PA):
@@ -108,7 +110,7 @@ class CompiledQPSolver:
             solve = admm_solve
         l, u = qp_bounds_batch(jf, data['b'])
         res = solve(data['P'], data['q'], data['A'], l, u, jf.n_zero, st,
-                    x0=x0, y0=y0)
+                    x0=x0, y0=y0, group=group)
         res['d'] = data['d']
         res['y_canon'] = -res['y']
         return res
@@ -226,9 +228,10 @@ class CompiledConicSolver:
         P_map = family.P_map
         self.P_is_zero = bool(P_map is None or P_map.nnz == 0)
 
-    def solve_batch(self, theta, settings=None):
+    def solve_batch(self, theta, settings=None, group=None):
         """Batched solve of theta (B, p): dict of batched tensors with x,
-        nu, z, s, obj, iters, status, solved, d and y_canon."""
+        nu, z, s, obj, iters, status, solved, d and y_canon.  ``group`` as in
+        CompiledQPSolver.solve_batch."""
         jf = self.jf
         data = canon_batch(jf, theta)
         A, b = data['A'], data['b']
@@ -237,7 +240,7 @@ class CompiledConicSolver:
                         A[:, mz:], b[:, mz:], jf.n_nonneg, jf.soc_dims,
                         settings or self.settings, n_exp=jf.n_exp,
                         psd_dims=jf.psd_dims, pow_alphas=jf.pow_alphas,
-                        P_is_zero=self.P_is_zero)
+                        P_is_zero=self.P_is_zero, group=group)
         res['d'] = data['d']
         res['y_canon'] = torch.cat([res['nu'], res['z']], dim=1)
         return res

@@ -28,6 +28,15 @@ P and A).  Three engines run it:
 - the torch loop alone, with 'never' (and 'auto' off the card).
 
 On CUDA, a shape a kernel cannot take raises; nothing drops to the loop.
+
+The loop's data-dependent control flow (its end, the adaptive-rho
+refactorization, the Newton-Schulz rescue) goes through a ``flow``:
+``EAGER`` (Python, one host read per decision) or ``TRACED`` (``torch.cond``
+and ``while_loop``, which ``torch.export`` carries: runtime/aot.py); both
+run the same loop body.  With a batch ``group`` every batch-wide decision
+is reduced over the group's ranks (parallel/mesh.py); with a model
+``shard`` P, A and M^-1 are row blocks and every product with them is
+exchanged over the model group (``make_sharded_qp_solve``).
 """
 from __future__ import annotations
 
@@ -35,6 +44,8 @@ import contextlib
 from dataclasses import dataclass
 
 import torch
+
+from .collectives import NO_SHARD, group_all, group_any, group_sum
 
 _INF = 1e30  # parity: reference replace_inf (utils.py:213-228)
 
@@ -102,68 +113,84 @@ def _eye(n, like):
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
-def _ns_diag_start(M):
+def _ns_diag_start(M, shard=NO_SHARD):
     """Diagonal-preconditioner NS start X0 = diag(M)^{-1} rescaled so
-    eig(M X0) in (0, 1] -- monotone NS from any SPD M.  M is (B, n, n)."""
+    eig(M X0) in (0, 1] -- monotone NS from any SPD M.  M is (B, n, n), or
+    this rank's row block of it under a model ``shard``."""
     n = M.shape[-1]
-    dg = torch.diagonal(M, dim1=1, dim2=2)
+    dg = shard.gather(torch.diagonal(M, offset=shard.bounds(n)[0], dim1=1,
+                                     dim2=2), n)
     dg_inv = 1.0 / torch.clamp(dg, min=1e-12)
-    ninf = torch.amax(torch.sum(torch.abs(M * dg_inv[:, None, :]), dim=2),
-                      dim=1)
+    ninf = shard.max(torch.amax(
+        torch.sum(torch.abs(M * dg_inv[:, None, :]), dim=2), dim=1))
     scale = dg_inv / torch.clamp(ninf, min=1.0)[:, None]
-    return _eye(n, M)[None] * scale[:, None, :]
+    return shard.rows(_eye(n, M), n, dim=0)[None] * scale[:, None, :]
 
 
-def ns_residual_err(M, X):
+def ns_residual_err(M, X, shard=NO_SHARD):
     """Per-instance ||I - M X||_inf (entrywise): the NS convergence
     certificate.  NaN iterates compare as 'not < threshold', so err-based
     guards catch divergence AND overflow."""
     n = M.shape[-1]
-    R = _eye(n, M)[None] - torch.matmul(M, X)
-    return torch.amax(torch.abs(R), dim=(1, 2))
+    R = (shard.rows(_eye(n, M), n, dim=0)[None]
+         - torch.matmul(M, shard.gather(X, n, dim=-2)))
+    return shard.max(torch.amax(torch.abs(R), dim=(1, 2)))
 
 
-def _ns_sweeps(M, X, iters):
-    I2 = 2.0 * _eye(M.shape[-1], M)
-    for _ in range(iters):
-        X = torch.matmul(X, I2 - torch.matmul(M, X))
-    return X
+def _ns_sweeps(M, X, iters, shard=NO_SHARD, flow=None):
+    n = M.shape[-1]
+    I2 = 2.0 * _eye(n, M)
+
+    def sweep(X):
+        return (torch.matmul(
+            X, I2 - shard.matmul(M, shard.gather(X, n, dim=-2), n)),)
+
+    return (flow or EAGER).repeat(iters, sweep, (X,))[0]
 
 
-def _ns_rescue(M, X, iters):
+def _ns_rescue(M, X, iters, shard=NO_SHARD, flow=None):
     """Recompute, from the monotone diagonal start, every instance whose
     residual certificate ||I - MX|| is not below 0.05."""
-    bad = ~(ns_residual_err(M, X) < 0.05)
-    if not bool(bad.any()):
-        return X
-    Xr = _ns_sweeps(M, _ns_diag_start(M), iters)
-    return torch.where(bad[:, None, None], Xr, X)
+    bad = ~(ns_residual_err(M, X, shard) < 0.05)
+
+    def rescue(M, X, bad):
+        Xr = _ns_sweeps(M, _ns_diag_start(M, shard), iters, shard, flow)
+        return torch.where(bad[:, None, None], Xr, X)
+
+    return (flow or EAGER).branch(bad.any(), rescue, lambda M, X, bad: X,
+                                  (M, X, bad))
 
 
-def newton_schulz_inverse(M, iters):
+def newton_schulz_inverse(M, iters, shard=NO_SHARD, flow=None):
     """Batched SPD inverse by Newton-Schulz, X <- X(2I - MX), from the
     diagonal preconditioner start: the reference's full-precision branch
     (its bf16 bulk phase, and with it ``ns_f32_iters``, exists only on its
-    TPU build)."""
-    return _ns_sweeps(M, _ns_diag_start(M), iters)
+    TPU build).  Under a model ``shard`` M and X are this rank's row
+    blocks, and each sweep gathers X and M X over the model group."""
+    return _ns_sweeps(M, _ns_diag_start(M, shard), iters, shard, flow)
 
 
-def newton_schulz_warm(M, X0, iters):
+def newton_schulz_warm(M, X0, iters, shard=NO_SHARD, flow=None):
     """Newton-Schulz restarted from a previous inverse (adaptive-rho
     refactorization).  X0 is rescaled by ||M X0||_inf >= lambda_max so
     eig(M X0) lies in (0, 1] -- monotone convergence from any SPD warm
     start -- and the certificate rescue guards a contaminated X0."""
-    ninf = torch.amax(torch.sum(torch.abs(torch.matmul(M, X0)), dim=2), dim=1)
+    n = M.shape[-1]
+    ninf = shard.max(torch.amax(torch.sum(torch.abs(
+        torch.matmul(M, shard.gather(X0, n, dim=-2))), dim=2), dim=1))
     X0 = X0 / torch.clamp(ninf, min=1.0)[:, None, None]
-    X = _ns_sweeps(M, X0, iters)
-    return _ns_rescue(M, X, max(iters, 30))
+    X = _ns_sweeps(M, X0, iters, shard, flow)
+    return _ns_rescue(M, X, max(iters, 30), shard, flow)
 
 
-def ruiz_equilibrate(P, q, A, l, u, iters):
+def ruiz_equilibrate(P, q, A, l, u, iters, shard=NO_SHARD):
     """Modified Ruiz scaling on [[P, A'],[A, 0]] + cost scaling c (OSQP
     paper alg. 2), batched over the leading axis.  Returns
-    (P, q, A, l, u, c, D, E) scaled."""
-    B, m, n = A.shape
+    (P, q, A, l, u, c, D, E) scaled; under a model ``shard`` P and A are
+    this rank's row blocks and the column norms are reduced over the model
+    group."""
+    B, n = q.shape
+    m = l.shape[1]
     dtype, dev = P.dtype, P.device
     c = torch.ones((B,), dtype=dtype, device=dev)
     D = torch.ones((B, n), dtype=dtype, device=dev)
@@ -175,20 +202,21 @@ def ruiz_equilibrate(P, q, A, l, u, iters):
                            torch.ones_like(v))
 
     for _ in range(iters):
-        nx_P = torch.amax(torch.abs(P), dim=1)                   # (B, n)
-        nx_A = torch.amax(torch.abs(A), dim=1) if m else torch.zeros_like(nx_P)
+        nx_P = shard.max(torch.amax(torch.abs(P), dim=1))        # (B, n)
+        nx_A = (shard.max(torch.amax(torch.abs(A), dim=1)) if m
+                else torch.zeros_like(nx_P))
         nx = torch.maximum(nx_P, nx_A)
-        nc = torch.amax(torch.abs(A), dim=2) if m else E
+        nc = shard.gather(torch.amax(torch.abs(A), dim=2), m) if m else E
         dx = torch.clamp(inv_sqrt(nx), 1e-4, 1e4)
         dc = torch.clamp(inv_sqrt(nc), 1e-4, 1e4)
-        P = dx[:, :, None] * P * dx[:, None, :]
-        A = dc[:, :, None] * A * dx[:, None, :]
+        P = shard.rows(dx, n)[:, :, None] * P * dx[:, None, :]
+        A = shard.rows(dc, m)[:, :, None] * A * dx[:, None, :]
         q = dx * q
         D = D * dx
         E = E * dc
         # cost scaling (OSQP scaling.c: each zero norm is replaced by 1
         # before the max, so q == 0 cannot inflate the cost)
-        col = torch.mean(torch.amax(torch.abs(P), dim=1), dim=1)
+        col = torch.mean(shard.max(torch.amax(torch.abs(P), dim=1)), dim=1)
         col = torch.where(col < 1e-12, torch.ones_like(col), col)
         qn = _inf_norm(q)
         qn = torch.where(qn < 1e-12, torch.ones_like(qn), qn)
@@ -202,14 +230,16 @@ def ruiz_equilibrate(P, q, A, l, u, iters):
 _USE_PALLAS = ('auto', 'always', 'never', 'full', 'full_interpret')
 
 
-def _scale(P, q, A, l, u, n_eq, st, x0, y0):
+def _scale(P, q, A, l, u, n_eq, st, x0, y0, shard=NO_SHARD):
     """Ruiz-scaled problem data, base rho and scaled starting point."""
-    B, m, n = A.shape
+    B, n = q.shape
+    m = l.shape[1]
     dtype, dev = P.dtype, P.device
     # clamp infinities (parity with generated C: +-1e30)
     l = torch.clamp(l, -_INF, _INF)
     u = torch.clamp(u, -_INF, _INF)
-    Ps, qs, As, ls, us, c, D, E = ruiz_equilibrate(P, q, A, l, u, st.scaling)
+    Ps, qs, As, ls, us, c, D, E = ruiz_equilibrate(P, q, A, l, u, st.scaling,
+                                                   shard)
     s = dict(Ps=Ps, qs=qs, As=As, ls=ls, us=us, c=c, D=D, E=E)
     # per-row rho: equalities get rho_eq_scale * rho (OSQP convention); a
     # per-instance scale factor carries adaptive rho
@@ -222,7 +252,7 @@ def _scale(P, q, A, l, u, n_eq, st, x0, y0):
     if x0 is not None:
         x0 = torch.as_tensor(x0, device=dev).to(dtype)
         s['x_start'] = (1.0 / D) * x0
-        s['z_start'] = E * torch.matmul(A, x0[..., None])[..., 0]
+        s['z_start'] = E * shard.mv(A, x0, m)
     else:
         s['x_start'] = torch.zeros((B, n), dtype=dtype, device=dev)
         s['z_start'] = torch.zeros((B, m), dtype=dtype, device=dev)
@@ -259,17 +289,99 @@ def full_kernel_args(P, q, A, l, u, n_eq, settings: ADMMSettings, x0=None,
         return _full_args(_scale(P, q, A, l, u, n_eq, settings, x0, y0))
 
 
-def admm_solve(P, q, A, l, u, n_eq, settings: ADMMSettings, x0=None, y0=None):
+def admm_solve(P, q, A, l, u, n_eq, settings: ADMMSettings, x0=None, y0=None,
+               group=None, shard=NO_SHARD, flow=None):
     """Solve a batch of QPs, each with its own P (B, n, n) and A (B, m, n).
 
     Returns dict(x, y, z, obj, iters, pri_res, dua_res, solved, status)
-    with y in the OSQP sign convention (Px + q + A'y = 0 at the optimum)."""
+    with y in the OSQP sign convention (Px + q + A'y = 0 at the optimum).
+
+    ``group``: a process group over which the batch is sharded; the loop's
+    end and the adaptive-rho refactorization are decided over its ranks,
+    and kernel K2's block is taken from the whole batch (no collective
+    when None).  ``shard``: a model-axis ``RowShard``; P and
+    A are then this rank's row blocks (P (B, n_r, n), A (B, m_r, n)) and l,
+    u whole.  ``flow``: ``EAGER`` (the default) or ``TRACED``."""
     with full_f32_matmul():
-        return _admm_solve_impl(P, q, A, l, u, n_eq, settings, x0, y0)
+        return _admm_solve_impl(P, q, A, l, u, n_eq, settings, x0, y0,
+                                group, shard, flow or EAGER)
 
 
-def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0):
-    B, m, n = A.shape
+class _EagerFlow:
+    """Python control flow: each data-dependent decision is one host read
+    (the loop's condition once per check interval)."""
+
+    @staticmethod
+    def branch(pred, true_fn, false_fn, operands):
+        return true_fn(*operands) if bool(pred) else false_fn(*operands)
+
+    @staticmethod
+    def loop(cond, body, state):
+        while bool(cond(*state)):
+            state = body(*state)
+        return state
+
+    @staticmethod
+    def repeat(n, step, carry):
+        for _ in range(n):
+            carry = step(*carry)
+        return carry
+
+
+class _TracedFlow:
+    """The same decisions as graph operators (``torch.cond``, ``while_loop``)
+    for ``torch.export``.  Neither operator lets an output alias an input,
+    so an output that is one of the inputs is copied."""
+
+    @staticmethod
+    def branch(pred, true_fn, false_fn, operands):
+        return torch.cond(pred, _unaliased(true_fn), _unaliased(false_fn),
+                          tuple(operands))
+
+    @staticmethod
+    def loop(cond, body, state):
+        from torch._higher_order_ops.while_loop import while_loop
+        return while_loop(cond, _unaliased(body), tuple(state))
+
+    @classmethod
+    def repeat(cls, n, step, carry):
+        """``n`` steps as one loop operator, so that the program records
+        (and the tracer traces) the step once."""
+        def counted(i, *c):
+            return (i + 1,) + tuple(step(*c))
+        i0 = torch.zeros((), dtype=torch.int32, device=carry[0].device)
+        return cls.loop(lambda i, *c: i < n, counted, (i0,) + tuple(carry))[1:]
+
+
+def _unaliased(fn):
+    def run(*args):
+        out = fn(*args)
+        one = isinstance(out, torch.Tensor)
+        outs = tuple(o.clone() if any(o is a for a in args) else o
+                     for o in ((out,) if one else out))
+        return outs[0] if one else outs
+    return run
+
+
+EAGER = _EagerFlow()
+TRACED = _TracedFlow()
+
+
+def form_M(Ps, As, sigma, rho_vec, shard=NO_SHARD):
+    """M = P + sigma I + A' diag(rho) A per instance (B, n, n); under a
+    model ``shard`` this rank's row block of it."""
+    n = Ps.shape[-1]
+    m = rho_vec.shape[-1]
+    AtRA = shard.sum(torch.matmul(
+        As.transpose(1, 2), As * shard.rows(rho_vec, m)[:, :, None]))
+    return ((Ps + sigma * shard.rows(_eye(n, Ps), n, dim=0))
+            + shard.rows(AtRA, n, dim=1))
+
+
+def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0,
+                     group=None, shard=NO_SHARD, flow=EAGER):
+    B, n = q.shape
+    m = l.shape[1]
     dtype, dev = P.dtype, P.device
 
     def zeros(*shape):
@@ -286,12 +398,6 @@ def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0):
                     solved=torch.ones((B,), dtype=torch.bool, device=dev),
                     status=ones_i)
 
-    s = _scale(P, q, A, l, u, n_eq, st, x0, y0)
-    Ps, qs, As, ls, us = s['Ps'], s['qs'], s['As'], s['ls'], s['us']
-    c, D, E = s['c'], s['D'], s['E']
-    c_inv, D_inv, E_inv = 1.0 / c, 1.0 / D, 1.0 / E
-    rho_base = s['rho_base']
-
     if st.kkt_solver not in ('auto', 'ns', 'inv', 'chol'):
         raise ValueError(
             f"ADMMSettings.kkt_solver={st.kkt_solver!r}: expected one of "
@@ -304,6 +410,21 @@ def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0):
     if kkt_mode == 'auto':
         kkt_mode = 'ns' if dev.type == 'cuda' else 'inv'
     adaptive = st.adaptive_rho and kkt_mode != 'chol'
+    if shard.group is not None and (kkt_mode == 'chol'
+                                    or st.use_pallas != 'never'):
+        raise ValueError("a model-sharded solve takes use_pallas='never' and "
+                         f"kkt_solver 'ns' or 'inv', not {st.use_pallas!r} "
+                         f'and {kkt_mode!r}')
+    if flow is TRACED and st.use_pallas in ('full', 'full_interpret'):
+        raise ValueError(f'use_pallas={st.use_pallas!r}: the whole-solve '
+                         'kernel K2 cannot be exported; export the K3 route '
+                         "('auto' or 'always') or the loop ('never')")
+
+    s = _scale(P, q, A, l, u, n_eq, st, x0, y0, shard)
+    Ps, qs, As, ls, us = s['Ps'], s['qs'], s['As'], s['ls'], s['us']
+    c, D, E = s['c'], s['D'], s['E']
+    c_inv, D_inv, E_inv = 1.0 / c, 1.0 / D, 1.0 / E
+    rho_base = s['rho_base']
 
     def finish(x, z, y, obj, it_vec, status, rp, rd):
         obj = torch.where(status == -3, torch.full_like(obj, float('inf')),
@@ -317,42 +438,49 @@ def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0):
     if st.use_pallas in ('full', 'full_interpret'):
         # the whole solve in kernel K2 (ops/admm_full_kernel.py)
         from ..ops.admm_full_kernel import (admm_solve_full,
-                                            admm_solve_full_plain)
+                                            admm_solve_full_plain,
+                                            pick_full_block)
         solve = (admm_solve_full_plain if st.use_pallas == 'full_interpret'
                  else admm_solve_full)
-        return finish(*solve(*_full_args(s), **full_kernel_kwargs(st)))
-
-    def form_M(rho_vec):
-        return ((Ps + st.sigma * _eye(n, Ps))
-                + torch.matmul(As.transpose(1, 2), As * rho_vec[:, :, None]))
+        block = None
+        if group is not None:
+            # the block is part of the answer (the rescue and the
+            # refactorization act on whole blocks): take it from the whole
+            # batch, as the single-process solve does
+            B_all = int(group_sum(torch.tensor(B, device=dev), group))
+            block = pick_full_block(B_all, m, n, dtype)
+            if block is None or B % block:
+                raise ValueError(
+                    f'full-solve kernel: the block of the whole batch '
+                    f'({B_all} instances) is {block} instances, and this '
+                    f'rank holds {B}: each rank must hold whole blocks')
+        return finish(*solve(*_full_args(s), **full_kernel_kwargs(st),
+                             block=block))
 
     def factor(rho_vec, Minv_warm=None):
-        M = form_M(rho_vec)
+        M = form_M(Ps, As, st.sigma, rho_vec, shard)
         if kkt_mode == 'ns':
             if Minv_warm is None:
-                return newton_schulz_inverse(M, st.ns_iters)
-            return newton_schulz_warm(M, Minv_warm, st.ns_adapt_iters)
-        Lc = torch.linalg.cholesky(M)
+                return newton_schulz_inverse(M, st.ns_iters, shard, flow)
+            return newton_schulz_warm(M, Minv_warm, st.ns_adapt_iters, shard,
+                                      flow)
+        Lc = torch.linalg.cholesky(shard.gather(M, n, dim=-2))
         if kkt_mode == 'chol':
             return Lc  # keep the factor; triangular solves every iteration
-        return torch.cholesky_solve(_eye(n, M).expand(B, n, n), Lc)
-
-    def mv(W, v):
-        return torch.matmul(W, v[..., None])[..., 0]
-
-    def vm(v, W):
-        return torch.matmul(v[:, None, :], W)[:, 0]
+        return shard.rows(torch.cholesky_solve(_eye(n, M).expand(B, n, n),
+                                               Lc), n, dim=-2)
 
     def M_matvec(rho_vec, x):
         # M x without materializing M (used by iterative refinement)
-        return mv(Ps, x) + st.sigma * x + vm(rho_vec * mv(As, x), As)
+        return (shard.mv(Ps, x, n) + st.sigma * x
+                + shard.vm(rho_vec * shard.mv(As, x, m), As, m))
 
     def kkt_apply(Minv, rho_vec, rhs):
         if kkt_mode == 'chol':
             return torch.cholesky_solve(rhs[..., None], Minv)[..., 0]
-        xt = mv(Minv, rhs)
+        xt = shard.mv(Minv, rhs, n)
         for _ in range(st.kkt_refine):
-            xt = xt + mv(Minv, rhs - M_matvec(rho_vec, xt))
+            xt = xt + shard.mv(Minv, rhs - M_matvec(rho_vec, xt), n)
         return xt
 
     # the fused iteration kernel K3 applies M^-1 without refinement
@@ -362,7 +490,7 @@ def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0):
     elif st.use_pallas == 'always':
         use_k3 = kkt_mode in ('ns', 'inv')
     if use_k3:
-        from ..ops.admm_kernel import admm_iterate, pick_iterate_block
+        from ..ops.admm_kernel import pick_iterate_block
         k3_block = pick_iterate_block(B, m, n)
         if k3_block is None:
             raise ValueError(f'fused iteration kernel: n={n}, m={m} does not '
@@ -405,33 +533,27 @@ def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0):
                     & torch.all(up_ok & lo_ok, dim=1))
         return prim_inf, dual_inf
 
-    x, z, y = s['x_start'], s['z_start'], s['y_start']
-    rho_scale = torch.ones((B,), dtype=dtype, device=dev)
-    Minv = factor(rho_base)
-    it = 0
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    it_vec = torch.zeros((B,), dtype=torch.int32, device=dev)
-    rp = torch.full((B,), float('inf'), dtype=dtype, device=dev)
-    rd = rp.clone()
-    status = torch.zeros((B,), dtype=torch.int32, device=dev)
+    def refactor(Minv, rho_scale):
+        return factor(rho_base * rho_scale[:, None], Minv_warm=Minv)
 
-    while not bool(done.all()) and it < st.max_iter:
+    def body(x, z, y, Minv, rho_scale, it, done, it_vec, status, rp, rd):
+        """One check interval: its iterations, then the residuals, the
+        certificates and adaptive rho."""
         rho_vec = rho_base * rho_scale[:, None]
         if use_k3:
-            xn, zn, yn = admm_iterate(Minv, As, qs, ls, us, rho_vec, x, z, y,
-                                      st.sigma, st.alpha, st.check_interval,
-                                      block=k3_block)
+            xn, zn, yn = torch.ops.cvxpygen_tpu_torch.admm_iterate(
+                Minv, As, qs, ls, us, rho_vec, x, z, y, st.sigma, st.alpha,
+                st.check_interval, k3_block)
         else:
-            xn, zn, yn = x, z, y
-            for _ in range(st.check_interval):
-                rhs = st.sigma * xn - qs + vm(rho_vec * zn - yn, As)
+            def step(xn, zn, yn):
+                rhs = st.sigma * xn - qs + shard.vm(rho_vec * zn - yn, As, m)
                 xt = kkt_apply(Minv, rho_vec, rhs)
-                zt = mv(As, xt)
+                zt = shard.mv(As, xt, m)
                 x1 = st.alpha * xt + (1 - st.alpha) * xn
                 w = st.alpha * zt + (1 - st.alpha) * zn + yn / rho_vec
                 zn = torch.minimum(torch.maximum(w, ls), us)
-                yn = rho_vec * (w - zn)
-                xn = x1
+                return x1, zn, rho_vec * (w - zn)
+            xn, zn, yn = flow.repeat(st.check_interval, step, (x, z, y))
         # freeze converged instances: batch result == single-instance result
         mask = done[:, None]
         dx = torch.where(mask, torch.zeros_like(x), xn - x)
@@ -439,27 +561,28 @@ def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0):
         x = torch.where(mask, x, xn)
         z = torch.where(mask, z, zn)
         y = torch.where(mask, y, yn)
-        it += st.check_interval
+        it = it + st.check_interval
         # fused check products: one pass over A/P for the residuals (x, y)
         # and the certificates (dx, dy)
         xs = torch.stack([x, dx], dim=1)                 # (B, 2, n)
         ys = torch.stack([y, dy], dim=1)                 # (B, 2, m)
-        Axs = torch.matmul(xs, As.transpose(1, 2))       # (B, 2, m)
-        Pxs = torch.matmul(xs, Ps.transpose(1, 2))       # (B, 2, n)
-        Atys = torch.matmul(ys, As)                      # (B, 2, n)
+        Axs = shard.gather(torch.matmul(xs, As.transpose(1, 2)), m)
+        Pxs = shard.gather(torch.matmul(xs, Ps.transpose(1, 2)), n)
+        Atys = shard.sum(torch.matmul(shard.rows(ys, m), As))
         rp, rd, rp_den, rd_den, ok = residuals(z, Axs[:, 0], Pxs[:, 0],
                                                Atys[:, 0])
         p_inf, d_inf = infeasibility(dx, dy, Pxs[:, 1], Axs[:, 1],
                                      Atys[:, 1])
-        it_vec = torch.where(ok & ~done, torch.full_like(it_vec, it), it_vec)
+        it_vec = torch.where(ok & ~done, it, it_vec)
         status = torch.where(ok & (status == 0), 1, status)
         status = torch.where(p_inf & (status == 0), -3, status)
         status = torch.where(d_inf & (status == 0), -4, status)
         done = done | ok | p_inf | d_inf
 
         if adaptive:
-            # OSQP adaptive rho per instance; any change refactors the
-            # whole batch (a warm Newton-Schulz restart in 'ns' mode)
+            # OSQP adaptive rho per instance; any change (on any rank of
+            # the batch group) refactors the whole batch (a warm
+            # Newton-Schulz restart in 'ns' mode)
             ratio = torch.sqrt(
                 (rp / torch.clamp(rp_den, min=1e-10))
                 / torch.clamp(rd / torch.clamp(rd_den, min=1e-10), min=1e-10))
@@ -468,10 +591,24 @@ def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0):
             step_f = torch.clamp(
                 torch.where(change, ratio, torch.ones_like(ratio)), 0.1, 10.0)
             rho_scale = torch.clamp(rho_scale * step_f, 1e-6, 1e6)
-            if bool(change.any()):
-                Minv = factor(rho_base * rho_scale[:, None], Minv_warm=Minv)
+            Minv = flow.branch(group_any(change, group), refactor,
+                               lambda Minv, rho_scale: Minv,
+                               (Minv, rho_scale))
+        return x, z, y, Minv, rho_scale, it, done, it_vec, status, rp, rd
 
-    it_vec = torch.where(done, it_vec, torch.full_like(it_vec, it))
-    obj = c_inv * (0.5 * torch.einsum('bi,bij,bj->b', x, Ps, x)
-                   + torch.sum(qs * x, dim=1))
+    def cond(x, z, y, Minv, rho_scale, it, done, *rest):
+        return ~group_all(done, group) & (it < st.max_iter)
+
+    rp0 = torch.full((B,), float('inf'), dtype=dtype, device=dev)
+    izeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+    state = (s['x_start'], s['z_start'], s['y_start'], factor(rho_base),
+             torch.ones((B,), dtype=dtype, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             torch.zeros((B,), dtype=torch.bool, device=dev), izeros,
+             izeros.clone(), rp0, rp0.clone())
+    x, z, y, _, _, it, done, it_vec, status, rp, rd = flow.loop(cond, body,
+                                                                state)
+    it_vec = torch.where(done, it_vec, it)
+    obj = c_inv * (0.5 * shard.sum(torch.einsum(
+        'bi,bij,bj->b', shard.rows(x, n), Ps, x)) + torch.sum(qs * x, dim=1))
     return finish(x, z, y, obj, it_vec, status, rp, rd)

@@ -19,6 +19,12 @@ rho-scaled splitting, residual termination, infeasibility certificates):
   KKT modes, no rho group, or the CPU outside 'full_interpret'): adaptive
   rho is batch-shared, and the warm refactorization has the
   residual-certificate rescue.
+
+With a ``group`` (a batch sharded over its ranks, parallel/mesh.py) every
+batch-wide quantity is reduced over the ranks: the Ruiz cost scaling's |q|
+envelope, the loop's end and the batch-shared adaptive rho; the kernel's
+rho group is taken from the whole batch, and each rank must hold whole
+groups.
 """
 from __future__ import annotations
 
@@ -26,22 +32,25 @@ import torch
 
 from .admm import (ADMMSettings, _eye, _inf_norm, full_f32_matmul,
                    newton_schulz_inverse, newton_schulz_warm)
+from .collectives import group_all, group_max, group_sum
 
 _INF = 1e30
 
 _KERNEL_MODES = ('auto', 'always', 'full', 'full_interpret')
 
 
-def ruiz_equilibrate_shared(P, A, q_batch, iters):
+def ruiz_equilibrate_shared(P, A, q_batch, iters, group=None):
     """Ruiz scaling of the SHARED [[P, A'],[A, 0]] (OSQP paper alg. 2).
 
     The cost scaling ``c`` must stay a batch-shared scalar (it multiplies
-    P), so the q-norm term uses the batch-max |q|."""
+    P), so the q-norm term uses the batch-max |q| (over the group's ranks
+    too)."""
     m, n = A.shape
     c = torch.ones((), dtype=P.dtype, device=P.device)
     D = torch.ones((n,), dtype=P.dtype, device=P.device)
     E = torch.ones((m,), dtype=P.dtype, device=P.device)
-    q_col = torch.amax(torch.abs(q_batch), dim=0)  # (n,) batch envelope
+    # (n,) batch envelope
+    q_col = group_max(torch.amax(torch.abs(q_batch), dim=0), group)
 
     def inv_sqrt(v):
         return torch.where(v > 1e-12,
@@ -72,16 +81,18 @@ def ruiz_equilibrate_shared(P, A, q_batch, iters):
 
 
 def admm_solve_shared(P, q, A, l, u, n_eq, settings: ADMMSettings,
-                      x0=None, y0=None, chunk=None):
+                      x0=None, y0=None, chunk=None, group=None):
     """Solve a batch of QPs sharing P (n, n) and A (m, n); q (B, n),
     l/u (B, m) batched.  Returns dict(x, y, z, obj, iters, pri_res,
     dua_res, solved, status) with y in OSQP sign convention.
 
     ``chunk`` fixes the kernel's instances per adaptive-rho group (default:
-    ops/admm_shared_kernel.pick_shared_chunk; with none, the loop runs)."""
+    ops/admm_shared_kernel.pick_shared_chunk of the whole batch; with none,
+    the loop runs).  ``group``: a process group over whose ranks the batch
+    is sharded (no collective when None)."""
     with full_f32_matmul():
         return _admm_solve_shared_impl(P, q, A, l, u, n_eq, settings,
-                                       x0, y0, chunk)
+                                       x0, y0, chunk, group)
 
 
 def _form_M(Ps, As, sigma, rho_vec):
@@ -89,14 +100,14 @@ def _form_M(Ps, As, sigma, rho_vec):
     return Ps + sigma * _eye(n, Ps) + (As.T * rho_vec[None, :]) @ As
 
 
-def _scale(P, q, A, l, u, n_eq, st, x0, y0):
+def _scale(P, q, A, l, u, n_eq, st, x0, y0, group=None):
     """Ruiz-scaled problem data, base rho and scaled starting point."""
     m, n = A.shape
     B = q.shape[0]
     dtype, dev = P.dtype, P.device
     l = torch.clamp(l, -_INF, _INF)
     u = torch.clamp(u, -_INF, _INF)
-    Ps, As, c, D, E = ruiz_equilibrate_shared(P, A, q, st.scaling)
+    Ps, As, c, D, E = ruiz_equilibrate_shared(P, A, q, st.scaling, group)
     s = dict(Ps=Ps, As=As, c=c, D=D, E=E, qs=(q * D) * c, ls=l * E,
              us=u * E, c_inv=1.0 / c, D_inv=1.0 / D, E_inv=1.0 / E)
     is_eq = torch.arange(m, device=dev) < n_eq
@@ -158,7 +169,7 @@ def use_kernel(st: ADMMSettings, kkt_mode, B, m, n, dtype, dev, chunk=None):
 
 
 def _admm_solve_shared_impl(P, q, A, l, u, n_eq, st: ADMMSettings,
-                            x0=None, y0=None, chunk=None):
+                            x0=None, y0=None, chunk=None, group=None):
     m, n = A.shape
     B = q.shape[0]
     dtype, dev = P.dtype, P.device
@@ -176,7 +187,7 @@ def _admm_solve_shared_impl(P, q, A, l, u, n_eq, st: ADMMSettings,
                     solved=torch.ones((B,), dtype=torch.bool, device=dev),
                     status=ones_i)
 
-    s = _scale(P, q, A, l, u, n_eq, st, x0, y0)
+    s = _scale(P, q, A, l, u, n_eq, st, x0, y0, group)
     Ps, As, qs, ls, us = s['Ps'], s['As'], s['qs'], s['ls'], s['us']
     D, E, c_inv, D_inv, E_inv = (s['D'], s['E'], s['c_inv'], s['D_inv'],
                                  s['E_inv'])
@@ -198,10 +209,21 @@ def _admm_solve_shared_impl(P, q, A, l, u, n_eq, st: ADMMSettings,
                     iters=it_vec, pri_res=rp, dua_res=rd,
                     solved=(status == 1), status=status)
 
-    if use_kernel(st, kkt_mode, B, m, n, dtype, dev, chunk):
+    # the whole batch's size: the kernel's rho group is taken from it
+    B_all = B if group is None else int(group_sum(
+        torch.tensor(B, device=dev), group))
+    if use_kernel(st, kkt_mode, B_all, m, n, dtype, dev, chunk):
         # the whole solve in kernel K1 (ops/admm_shared_kernel.py)
         from ..ops.admm_shared_kernel import (admm_shared_solve,
-                                              admm_shared_solve_plain)
+                                              admm_shared_solve_plain,
+                                              pick_shared_chunk)
+        if group is not None:
+            chunk = chunk or pick_shared_chunk(B_all, m, n, dtype)
+            if B % chunk:
+                raise ValueError(
+                    f'shared-KKT kernel: the rho group of the whole batch '
+                    f'({B_all} instances) is {chunk} instances, and this '
+                    f'rank holds {B}: each rank must hold whole rho groups')
         solve = (admm_shared_solve_plain if st.use_pallas == 'full_interpret'
                  else admm_shared_solve)
         return finish(*solve(*_kernel_args(s, st), **kernel_kwargs(st),
@@ -277,7 +299,7 @@ def _admm_solve_shared_impl(P, q, A, l, u, n_eq, st: ADMMSettings,
     rd = rp.clone()
     status = torch.zeros((B,), dtype=torch.int32, device=dev)
 
-    while not bool(done.all()) and it < st.max_iter:
+    while not bool(group_all(done, group)) and it < st.max_iter:
         rho_vec = rho_base * rho_scale
         xn, zn, yn = x, z, y
         for _ in range(st.check_interval):
@@ -317,10 +339,14 @@ def _admm_solve_shared_impl(P, q, A, l, u, n_eq, st: ADMMSettings,
             log_r = torch.where(active,
                                 torch.log(torch.clamp(ratio, 1e-6, 1e6)),
                                 torch.zeros_like(ratio))
-            n_act = max(int(active.sum()), 1)
-            comb = torch.exp(torch.sum(log_r) / n_act)
+            # the sum of log_r and the active count, over the group's
+            # ranks in one all-reduce
+            both = group_sum(torch.stack(
+                [torch.sum(log_r), active.sum().to(dtype)]), group)
+            n_act = int(both[1])
+            comb = torch.exp(both[0] / max(n_act, 1))
             tol = st.adaptive_rho_tolerance
-            change = bool(((comb > tol) | (comb < 1.0 / tol)) & active.any())
+            change = bool(((comb > tol) | (comb < 1.0 / tol)) & (n_act > 0))
             step_f = torch.clamp(comb if change else torch.ones_like(comb),
                                  0.1, 10.0)
             rho_scale = torch.clamp(rho_scale * step_f, 1e-6, 1e6)

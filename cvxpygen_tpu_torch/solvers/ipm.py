@@ -55,6 +55,7 @@ from ..ops.ldl_kernel import (ldl_factor_inverse_kernel, ldl_factor_kernel,
                               ldl_inverse_kernel, ldl_kinv_kernel,
                               ldl_solve_kernel)
 from .admm import full_f32_matmul, newton_schulz_inverse
+from .collectives import group_all
 from .ipm_cones import (ExoticCones, ExoticScaling, exotic_centrality_alpha,
                         exotic_dual_dist, exotic_init, exotic_max_step,
                         exotic_primal_dist)
@@ -378,7 +379,8 @@ def _ldl_kinv(K, signs, st):
 def ipm_solve(P, q, E, f, G, h, l_nonneg: int, socs: Tuple[int, ...],
               settings: IPMSettings = IPMSettings(),
               n_exp: int = 0, psd_dims: Tuple[int, ...] = (),
-              pow_alphas: Tuple[float, ...] = (), P_is_zero: bool = False):
+              pow_alphas: Tuple[float, ...] = (), P_is_zero: bool = False,
+              group=None):
     """Solve a batch of conic QPs.  Returns dict(x, nu, z, s, obj, iters,
     gap, res_primal, res_dual, solved, status).  Status codes match the
     ADMM engine (reference CPG_Info statuses, utils.py:977-985):
@@ -387,15 +389,19 @@ def ipm_solve(P, q, E, f, G, h, l_nonneg: int, socs: Tuple[int, ...],
 
     ``P_is_zero``: the caller asserts P == 0 structurally (linear-objective
     family); exotic layouts then get the homogeneous-self-dual-embedding
-    post-pass for instances left undetermined at max_iter."""
+    post-pass for instances left undetermined at max_iter.
+
+    ``group``: a process group over whose ranks the batch is sharded; the
+    loop runs until every rank's instances are done (no collective when
+    None).  Instances are independent otherwise."""
     with full_f32_matmul():
         return _ipm_solve_impl(P, q, E, f, G, h, l_nonneg, tuple(socs),
                                settings, n_exp, tuple(psd_dims),
-                               tuple(pow_alphas), P_is_zero)
+                               tuple(pow_alphas), P_is_zero, group)
 
 
 def _ipm_solve_impl(P, q, E, f, G, h, l_nonneg, socs, st, n_exp, psd_dims,
-                    pow_alphas, P_is_zero):
+                    pow_alphas, P_is_zero, group=None):
     B, n = q.shape
     mz = E.shape[1] if E.dim() == 3 else 0
     mc = G.shape[1]
@@ -875,7 +881,8 @@ def _ipm_solve_impl(P, q, E, f, G, h, l_nonneg, socs, st, n_exp, psd_dims,
 
     izeros = torch.zeros((B,), dtype=torch.int32, device=dev)
     state = (x0, nu0, z0, s0, 0, izeros, izeros, izeros, izeros)
-    while state[4] < st.max_iter and not bool(torch.all(state[5] != 0)):
+    while (state[4] < st.max_iter
+           and not bool(group_all(state[5] != 0, group))):
         state = step(*state)
     x, nu, z, s, it, status, it_vec, _, _ = state
     it_vec = torch.where(status != 0, it_vec, torch.full_like(it_vec, it))
