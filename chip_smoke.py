@@ -254,8 +254,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    Family (``--run-exported``), against the live solve (equal status and
    iterations, x within SHARD_TOL), with both times and the exported
    program's K3 launches (added to the kernels line);
-21. a JSON line with each kernel's launches, error, times and bound;
-22. the card's name and power limit (nvidia-smi), then the result line.
+21. the embedded-C artifact (native/, codegen/emit_c.py): MPC H=10
+   through generate_code(gradient=True) at the default device, its
+   LICENSE equal to the repository's, its README.html naming the
+   parameters, the variables and c/cpg_core.cpp; the ctypes library
+   (native.get_lib) and the c/ projects of MPC and of charging T=1440
+   (tests/test_admm_banded.py's family: the sparse COO + RCM-banded
+   emission) built at once (``make``, which must be on PATH); MPC's
+   ./cpg_example at status 1, its objective
+   within 1e-2 of solve(method='CPG') on the card and of the float64
+   oracle, its dobj/dtheta entries within 1e-6 of
+   NativeQPSolver.gradient(gobj=1.0); phase 3's shared batch (B=2048,
+   K1) against NativeQPSolver at eps 1e-6 on 64 instances within 1e-2;
+   charging's ./cpg_example at status 1 within 1e-2 of
+   CompiledBandedQPSolver (K4) at eps 1e-4 on the card; the builds', the
+   examples' and the host solves' times beside the host CPU's model;
+   K1's and K4's launches join the kernels line;
+22. a JSON line with each kernel's launches, error, times and bound;
+23. the card's name and power limit (nvidia-smi), then the result line.
 
 ``python3 chip_smoke.py --block-sweep`` instead builds the kernels and runs
 K2 on the portfolio and MPC general batches at several blocks, printing
@@ -272,6 +288,8 @@ import json
 import math
 import multiprocessing
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -4659,6 +4677,232 @@ def phase_aot(card):
     return int(round(float(exp['launches'])))
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the embedded-C artifact (native/, codegen/emit_c.py)
+# ---------------------------------------------------------------------------
+
+# instances of the shared MPC batch the embedded core solves on the host,
+# at its eps (the dense core's float64 solve against K1's float32 one)
+N_NATIVE = 64
+NATIVE_EPS = 1e-6
+NATIVE_MAX_ITER = 20000
+# the C example's printed dobj/dtheta (9 significant digits) against
+# NativeQPSolver.gradient on the same family, theta and settings
+NATIVE_GRAD_TOL = 1e-6
+# the charging family and banded settings of tests/test_native.py:379-417
+# (the JAX package's artifact test): T=1440 gets the sparse COO + RCM-banded
+# emission; at eps 1e-3 the banded engine alone sits up to 1.04e-2 from
+# the optimum (ROADMAP A3), so it is held at 1e-4
+NATIVE_CHARGING_SETTINGS = dict(eps_abs=1e-4, eps_rel=1e-4, max_iter=200000,
+                                check_interval=50)
+C_EXAMPLE_TIMEOUT_S = 300
+
+
+def native_charging_problem(ct, T=CHARGING_T):
+    """The charging family of tests/test_admm_banded.py:23-40 (seed 0)."""
+    u = ct.Variable(T, name='u')
+    qv = ct.Variable(T + 1, name='q')
+    p = ct.Parameter(T, nonneg=True, name='p')
+    gamma = ct.Parameter(nonneg=True, name='gamma')
+    objective = ct.Minimize(p @ u + gamma * ct.sum_squares(u))
+    constraints = [qv[1:] == qv[:-1] + u,
+                   ct.Constant(-0.1) <= u, u <= ct.Constant(0.05),
+                   ct.Constant(0) <= qv, qv <= ct.Constant(1.0),
+                   qv[0] == 0, qv[T] == ct.Constant(1.0)]
+    prob = ct.Problem(objective, constraints)
+    p.value = 1.0 + 4.0 * np.random.default_rng(0).random(T)
+    gamma.value = 50.0
+    return prob
+
+
+def host_cpu():
+    """The host CPU as /proc/cpuinfo gives it (its model name and vendor;
+    a virtual machine may report the name as unknown) and the logical
+    CPUs this process may use."""
+    fields = {}
+    with open('/proc/cpuinfo') as f:
+        for line in f:
+            key, _, value = line.partition(':')
+            fields.setdefault(key.strip(), value.strip())
+    return (f"{fields.get('model name', 'no model name')} "
+            f"({fields.get('vendor_id', 'no vendor_id')}, cpu family "
+            f"{fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')}), "
+            f'{len(os.sched_getaffinity(0))} logical CPUs')
+
+
+def build_c_project(cdir):
+    """Build a generated c/ with ``make``, as its Makefile says.  Returns
+    (what ran, seconds)."""
+    check(shutil.which('make') is not None,
+          'make is not on PATH: it builds the generated c/ projects')
+    t0 = time.perf_counter()
+    res = subprocess.run(['make'], cwd=cdir, capture_output=True, text=True)
+    check(res.returncode == 0, f'make in {cdir} failed:\n'
+          + res.stdout + res.stderr)
+    return 'make', time.perf_counter() - t0
+
+
+def run_c_example(cdir):
+    """./cpg_example: (status, iterations, objective, printed gradient
+    entries, seconds)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(['./cpg_example'], cwd=cdir, capture_output=True,
+                         text=True, timeout=C_EXAMPLE_TIMEOUT_S)
+    dt = time.perf_counter() - t0
+    out = res.stdout
+    check(res.returncode == 0, f'{cdir}/cpg_example failed:\n{out}'
+          + res.stderr)
+    head = re.search(r'status = (-?\d+), iters = (\d+), obj = (\S+)', out)
+    check(head is not None, f'{cdir}/cpg_example printed:\n{out}')
+    grads = [float(v) for v in
+             re.findall(r'dobj/dtheta\[\d+\] = (\S+)', out)]
+    return (int(head.group(1)), int(head.group(2)), float(head.group(3)),
+            grads, dt)
+
+
+def timed_native_build():
+    from cvxpygen_tpu_torch import native
+    t0 = time.perf_counter()
+    native.get_lib()
+    return time.perf_counter() - t0
+
+
+def phase_embedded(card, dev='cuda'):
+    """Phase 21: the embedded-C artifact.  Returns K1's and K4's launches
+    (the shared MPC batch and the banded charging solve)."""
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch import cpg
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.native import NativeQPSolver
+    from cvxpygen_tpu_torch.ops import admm_shared_kernel as k1
+    from cvxpygen_tpu_torch.ops import banded_shared_kernel as k45
+    from cvxpygen_tpu_torch.runtime.solver import (CompiledBandedQPSolver,
+                                                   CompiledQPSolver)
+    from cvxpygen_tpu_torch.solvers.admm import ADMMSettings
+    host = host_cpu()
+    base = os.path.join(ROOT, 'build', 'chip_smoke', 'embedded')
+
+    # the packages: MPC H=10 at the default device with gradient=True, and
+    # charging T=1440 (sparse emission)
+    prob = assign_mpc(mpc_problem(ct))
+    mpc_dir = os.path.join(base, 'mpc_code')
+    cpg.generate_code(prob, code_dir=mpc_dir, solver='ADMM', gradient=True,
+                      device=None if dev == 'cuda' else dev)
+    cprob = native_charging_problem(ct)
+    ch_dir = os.path.join(base, 'charging_code')
+    cpg.generate_code(cprob, code_dir=ch_dir, wrapper=False)
+    with open(os.path.join(ROOT, 'LICENSE'), 'rb') as f:
+        lic = f.read()
+    with open(os.path.join(mpc_dir, 'LICENSE'), 'rb') as f:
+        check(f.read() == lic, 'the package LICENSE differs from the repo')
+    with open(os.path.join(mpc_dir, 'README.html')) as f:
+        html = f.read()
+    for name in ('Psqrt', 'Qsqrt', 'Rsqrt', 'A', 'B', 'x_init', 'U', 'X',
+                 'cpg_core.cpp', 'c/ (make && ./cpg_example)'):
+        check(name in html, f'README.html lacks {name}')
+    with open(os.path.join(ch_dir, 'c', 'cpg_data.c')) as f:
+        src = f.read()
+    check('cpg_native_set_scatter' in src and 'cpg_native_set_perm' in src,
+          'charging T=1440 did not get the sparse emission')
+
+    # the ctypes library and both c/ projects, built at once
+    with ThreadPoolExecutor(3) as ex:
+        f_lib = ex.submit(timed_native_build)
+        f_mpc = ex.submit(build_c_project, os.path.join(mpc_dir, 'c'))
+        f_ch = ex.submit(build_c_project, os.path.join(ch_dir, 'c'))
+        t_lib, (how, t_mpc), (_, t_ch) = (f_lib.result(), f_mpc.result(),
+                                          f_ch.result())
+    print(f'# phase 21: builds at once: ctypes library (g++ -O3 '
+          f'-march=native) {t_lib:.2f} s; c/ by `{how}`: MPC {t_mpc:.2f} s, '
+          f'charging T={CHARGING_T} {t_ch:.2f} s [host {host}]')
+
+    # (a) MPC: the C example against solve(method='CPG') on the card, the
+    # float64 oracle and the ctypes core's gradient
+    status, iters, obj_c, grads, t_run = run_c_example(
+        os.path.join(mpc_dir, 'c'))
+    check(status == 1, f'MPC cpg_example status {status}')
+    val_cpg = prob.solve(method='CPG')
+    fam = canonicalize(prob)
+    theta0 = fam.pack_theta(params=prob.parameters())
+    obj_oracle = oracle_objs(fam, theta0[None], 1)[0]
+    rel_cpg = abs(obj_c - val_cpg) / max(1.0, abs(val_cpg))
+    rel_oracle = abs(obj_c - obj_oracle) / max(1.0, abs(obj_oracle))
+    ns = NativeQPSolver(fam)
+    res = ns.solve(theta0)
+    g = ns.gradient(gobj=1.0)
+    check(len(grads) == min(4, fam.p), f'{len(grads)} gradient entries')
+    g_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(grads, g))
+    print(f'# phase 21: MPC H=10 c/ example: status {status}, {iters} iters '
+          f'(ctypes core {res["iters"]}), objective {obj_c:.9g}; rel to '
+          f'solve(method=CPG) on the card ({val_cpg:.6f}) {rel_cpg:.3e}, to '
+          f'the float64 oracle ({obj_oracle:.6f}) {rel_oracle:.3e}; dobj/'
+          f'dtheta[:{len(grads)}] rel to NativeQPSolver.gradient {g_err:.3e}; '
+          f'run {1e3 * t_run:.1f} ms [host {host}; {card}]')
+    check(rel_cpg <= PARITY_BAR and rel_oracle <= PARITY_BAR,
+          f'MPC C objective rel {rel_cpg:.3e} / {rel_oracle:.3e}')
+    check(g_err <= NATIVE_GRAD_TOL, f'MPC C gradient rel {g_err:.3e}')
+
+    # (b) K1 on the shared batch of phase 3 against the embedded core
+    theta = x_init_batch(fam, prob, B_MAIN)
+    solver = CompiledQPSolver(fam, settings=ADMMSettings(**BENCH_SETTINGS),
+                              device=dev)
+    k1.admm_shared_solve.launches = 0
+    out = solver.solve_batch(theta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = solver.solve_batch(theta)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1_launches = k1.admm_shared_solve.launches
+    check(k1_launches > 0, 'the shared batch did not launch K1')
+    check(bool((out['status'] == 1).all()), 'K1 left instances unsolved')
+    obj = (out['obj'] + out['d']).double().cpu().numpy()
+    ns.set_settings(eps_abs=NATIVE_EPS, eps_rel=NATIVE_EPS,
+                    max_iter=NATIVE_MAX_ITER)
+    t0 = time.perf_counter()
+    nat = [ns.solve(theta[i]) for i in range(N_NATIVE)]
+    t_native = (time.perf_counter() - t0) / N_NATIVE
+    check(all(r['solved'] for r in nat), 'the embedded core left instances '
+          'unsolved')
+    max_rel, n_bad = parity(obj, [r['obj'] for r in nat])
+    print(f'# phase 21: K1 B={B_MAIN}: {1e3 * dt:.3f} ms per batch, K1 '
+          f'launches {k1_launches} (two calls) [{card}]; objective on '
+          f'{N_NATIVE} within {max_rel:.3e} of NativeQPSolver at eps '
+          f'{NATIVE_EPS:g} (mean iters '
+          f'{np.mean([r["iters"] for r in nat]):.1f}, '
+          f'{1e3 * t_native:.3f} ms per solve on the host [{host}])')
+    check(n_bad == 0 and max_rel <= PARITY_BAR,
+          f'K1 against the embedded core {max_rel:.3e} ({n_bad} non-finite)')
+
+    # (c) charging T=1440: the sparse C example against the banded engine
+    # (K4) on the card at eps 1e-4
+    status, iters, obj_c, _, t_run = run_c_example(os.path.join(ch_dir, 'c'))
+    check(status == 1, f'charging cpg_example status {status}')
+    cfam = canonicalize(cprob)
+    ctheta = cfam.pack_theta(params=cprob.parameters())
+    csolver = CompiledBandedQPSolver(
+        cfam, settings=ADMMSettings(**NATIVE_CHARGING_SETTINGS), device=dev)
+    k45.cr_solve.launches = 0
+    t0 = time.perf_counter()
+    cout = csolver.solve_batch(ctheta[None, :])
+    torch.cuda.synchronize()
+    t_banded = time.perf_counter() - t0
+    k4_launches = k45.cr_solve.launches
+    check(bool(cout['solved'][0]), 'the banded engine did not solve charging')
+    obj_b = float((cout['obj'] + cout['d'])[0])
+    rel = abs(obj_c - obj_b) / max(1.0, abs(obj_b))
+    print(f'# phase 21: charging T={CHARGING_T} c/ example (sparse COO + '
+          f'RCM-banded core): status {status}, {iters} iters, objective '
+          f'{obj_c:.9g}, run {1e3 * t_run:.1f} ms [host {host}]; banded '
+          f'engine at eps {NATIVE_CHARGING_SETTINGS["eps_abs"]:g}: '
+          f'{obj_b:.9g} (rel {rel:.3e}), {int(cout["iters"][0])} iters, '
+          f'{1e3 * t_banded:.1f} ms, K4 launches {k4_launches} [{card}]')
+    check(k4_launches > 0, 'the banded charging solve did not launch K4')
+    check(rel <= PARITY_BAR, f'charging C objective rel {rel:.3e}')
+    return k1_launches, k4_launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke.py: no CUDA device')
@@ -4705,6 +4949,9 @@ def main():
     k1_launches += par['K1']
     k2_launches += par['K2']
     k3_launches += par['K3'] + phase_aot(card)
+    native_k1, native_k4 = phase_embedded(card)
+    k1_launches += native_k1
+    k4_launches += native_k4
     kernels = [
         dict(name='admm_shared_solve', route='cuda',
              source='cvxpygen_tpu_torch/csrc/admm_shared.cu',

@@ -15,10 +15,15 @@ the reference it is held against.  Same layout and module names:
 - autodiff/ holds the differentiable solves (QP, banded QP, conic) and
   ``TorchLayer``, a cvxpylayers-style layer over them;
 - solvers/explicit.py holds the explicit (multi-parametric QP) solver:
-  the offline region enumeration and the torch lookup-table evaluator.
-
-Not ported yet: the parallel layer and the runtime extras (ROADMAP.md
-queue 1 item 11), and the embedded-C artifact (item 12).
+  the offline region enumeration and the torch lookup-table evaluator;
+- parallel/ shards a batch (and P/A by rows) over torch.distributed
+  ranks; runtime/aot.py exports a solve with torch.export and
+  runtime/profiling.py times its stages;
+- native/ holds the embedded C++ core (cpg_core.cpp, the JAX package's
+  core) and ``NativeQPSolver``, its ctypes runtime: a host float64 solver
+  with an embedded gradient, never a route of the torch solvers;
+  codegen/emit_c.py writes each generated package's ``c/``, a standalone
+  C project over that core (``make && ./cpg_example``).
 
 Entry points run on CUDA unless the caller passes ``device='cpu'``; with
 no card and no explicit device they raise.
