@@ -62,7 +62,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    route at the general row's 6 sweeps, which leave some instances unsolved
    without refinement, on the first 512 instances, its status held to the
    torch loop at kkt_refine=0 within twice the difference that K3's plain
-   version shows; and the portfolio family with per-instance factor
+   version shows; a batch of 6 (B not a multiple of 8, so the reference's
+   block rule gives no block) at 'auto': no K3 launch, and bitwise the
+   solve with use_pallas='never' (statuses, iterations, x); and the
+   portfolio family with per-instance factor
    loadings (bench.py:460-531) at B=512 through K2 at the bench's settings
    (at most 1% unsolved, since roundoff decides a few borderline instances
    there) and with a second refinement sweep (every instance solved), both
@@ -238,7 +241,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 19. the parallel layer on a 2-rank gloo world, both ranks on cuda:0 (NCCL
    refuses two ranks on one card): sharded_solve of the shared MPC batch
    (B=2048, the bench's settings: K1 on each rank at the whole batch's rho
-   group, 1024), of the K3 route (phase 6's batch) and of the K2 route
+   group, 1024), of the K3 route (phase 6's batch, and 12 instances a
+   rank: the whole batch of 24 has the reference's block 8, a rank alone
+   none, so each rank must launch K3 and be bitwise one process at B=24)
+   and of the K2 route
    (the general row's settings, B=256: K2 on each rank at the whole
    batch's block, 8), each against rank 0's single-process solve (equal
    status and iterations, x within SHARD_TOL; bitwise equality printed);
@@ -270,8 +276,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    CompiledBandedQPSolver (K4) at eps 1e-4 on the card; the builds', the
    examples' and the host solves' times beside the host CPU's model;
    K1's and K4's launches join the kernels line;
-22. a JSON line with each kernel's launches, error, times and bound;
-23. the card's name and power limit (nvidia-smi), then the result line.
+22. float64 on the card through the default routes (the kernels take
+   float32; B=64 each, eps 1e-6): MPC H=10 through generate_code(dtype=
+   'float64') -> solve_batch on the shared torch loop, one
+   solve(method='CPG'), the per-instance loop (K3's float32 route takes
+   this B), ADP and entropy n=32 on the IPM at kkt_solver 'auto' ('lu');
+   each within the port's CPU float64 tests' bar of the float64 oracle
+   (entropy: logsumexp(c) and softmax(c)) and against the port's CPU
+   float64 run of the same route (statuses equal, iterations within one
+   check interval, x within 1e-6); MPC H=30 through
+   CompiledBandedQPSolver at B=2 on the per-instance banded engine (the
+   shared one in float32), held the same way (the banded tests' 1e-3 of
+   the oracle); no kernel launched; the banded shared engine on charging
+   T=1440 in float64 raises its ValueError at entry, and
+   CompiledBandedQPSolver routes that batch to the per-instance engine;
+   each route timed after its first call, beside the card;
+23. a JSON line with each kernel's launches, error, times and bound;
+24. the card's name and power limit (nvidia-smi), then the result line.
 
 ``python3 chip_smoke.py --block-sweep`` instead builds the kernels and runs
 K2 on the portfolio and MPC general batches at several blocks, printing
@@ -370,6 +391,9 @@ K5_TOL = 1e-4
 K5_FLAG_BAND = 1e-5
 B_MAIN = 2048
 B_CMP = 256
+# a per-instance batch that the reference's block rule gives no block (B
+# not a multiple of 8): the K3 route's 'auto' runs the refined loop there
+B_SMALL_ROUTE = 6
 # K1 also at pinned chunks: 8, the rho group of the port's first rule, and
 # 4, 2, 1, whose thread blocks hold 4, 2 and 1 instances
 K1_PINNED_CHUNKS = (8, 4, 2, 1)
@@ -1264,6 +1288,36 @@ def k3_route_status(fam, prob, card):
     return launches
 
 
+def k3_route_small(fam, theta, st, card):
+    """A batch of B_SMALL_ROUTE instances, which the reference's block rule
+    gives no block (B not a multiple of 8): 'auto' runs the refined torch
+    loop and launches no K3, so its solve is bitwise the solve with
+    use_pallas='never' (statuses, iterations and x)."""
+    from cvxpygen_tpu_torch.ops import admm_kernel as k3
+    from cvxpygen_tpu_torch.runtime.solver import CompiledQPSolver
+    from cvxpygen_tpu_torch.solvers.admm import pick_block
+    solver = CompiledQPSolver(fam, settings=st)
+    small = theta[:B_SMALL_ROUTE]
+    k3.admm_iterate.launches = 0
+    auto = solver.solve_batch(small, shared_PA=False)
+    launches = k3.admm_iterate.launches
+    loop = solver.solve_batch(
+        small, settings=dataclasses.replace(st, use_pallas='never'),
+        shared_PA=False)
+    same = {k: torch.equal(auto[k], loop[k]) for k in ('status', 'iters',
+                                                       'x')}
+    print(f'# phase 6: MPC per-instance B={B_SMALL_ROUTE}, '
+          f"use_pallas='auto' (block of the reference's rule: "
+          f'{pick_block(B_SMALL_ROUTE, fam.m, fam.n, torch.float32)}): K3 '
+          f'launches {launches}, solved '
+          f'{int((auto["status"] == 1).sum())}, mean iters '
+          f'{float(auto["iters"].float().mean()):.2f}; bitwise equal to '
+          f"use_pallas='never': {same} [{card}]")
+    check(launches == 0, f'B={B_SMALL_ROUTE}: the route launched K3')
+    check(all(same.values()), f'B={B_SMALL_ROUTE}: the auto route differs '
+          f"from use_pallas='never': {same}")
+
+
 def portfolio_problem(ct, n=20, m=5):
     """The portfolio family of tests/problems.py:104-126 (reference
     tests/test_E2E_QP.py:76-110) in the port's modeling layer."""
@@ -1354,6 +1408,7 @@ def phase_per_instance(fam, prob, refs, card, portfolio):
         'MPC per-instance through K3, ns_adapt_iters 12',
         CompiledQPSolver(fam, settings=st12), theta, refs, k3.admm_iterate,
         card, reps=1)
+    k3_route_small(fam, theta, st12, card)
 
     pfam, ptheta, prefs = portfolio
     psolver = CompiledQPSolver(pfam,
@@ -3451,13 +3506,13 @@ def oracle_objs_async(pool, fam, theta, k, tol=1e-7):
     return pool.map(_oracle_obj, [(fam, theta[i], tol) for i in range(k)])
 
 
-def timed_solve(solver, theta, settings, reps):
+def timed_solve(solver, theta, settings, reps, **kw):
     """One warm-up call, then the mean host time of ``reps`` calls."""
-    out = solver.solve_batch(theta, settings=settings)
+    out = solver.solve_batch(theta, settings=settings, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        out = solver.solve_batch(theta, settings=settings)
+        out = solver.solve_batch(theta, settings=settings, **kw)
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) / reps
 
@@ -4204,7 +4259,8 @@ def phase_explicit(card, dev='cuda'):
         x, _, region = explicit.explicit_evaluate(data, th_dev)
         torch.cuda.synchronize()
         ms, _ = cuda_ms(lambda: explicit.explicit_evaluate(data, th_dev), 20)
-        x_cpu, _, reg_cpu = explicit.explicit_evaluate(data, theta)
+        x_cpu, _, reg_cpu = explicit.explicit_evaluate(data, theta,
+                                                       device='cpu')
         cpu_err = float((x.cpu() - x_cpu).abs().max())
         same_region = float((region.cpu() == reg_cpu).double().mean())
         errs = []
@@ -4292,6 +4348,10 @@ PARALLEL_TIMEOUT_S = 300
 # no rank holds
 RANK_B = 1024
 RANK_B_SMALL = 8
+# the K3 route's small sharded batch: 12 instances a rank, which alone have
+# no block of the reference's rule while the whole batch (24 on two ranks)
+# has one, so each rank must take K3 from the whole batch's size
+RANK_B_ROUTE = 12
 CONSENSUS_K = 2
 CONSENSUS_SETTINGS = dict(rho_c=2.0, outer_iters=100, eps_consensus=1e-4)
 # consensus: the sharded zbar against the single-process one, at equal
@@ -4391,20 +4451,28 @@ def _host(out):
             for k, v in out.items()}
 
 
-def _parallel_wrappers():
-    """The wrappers of the kernels that phase 19 drives, by name."""
+def kernel_wrappers():
+    """Every kernel wrapper of the port by kernel name, K1-K11 (each counts
+    its launches in ``.launches``; K9 and K10 are the two wrappers of the
+    one fused kernel)."""
     from cvxpygen_tpu_torch.ops import admm_full_kernel as k2
     from cvxpygen_tpu_torch.ops import admm_kernel as k3
     from cvxpygen_tpu_torch.ops import admm_shared_kernel as k1
+    from cvxpygen_tpu_torch.ops import banded_shared_kernel as k45
+    from cvxpygen_tpu_torch.ops import ldl_kernel as lk
     return dict(K1=k1.admm_shared_solve, K2=k2.admm_solve_full,
-                K3=k3.admm_iterate)
+                K3=k3.admm_iterate, K4=k45.cr_solve,
+                K5=k45.banded_shared_chunk, K6=lk.ldl_factor_kernel,
+                K7=lk.ldl_inverse_kernel, K8=lk.ldl_solve_kernel,
+                K9=lk.ldl_factor_inverse_kernel, K10=lk.ldl_kinv_kernel,
+                K11=k45.banded_iterate)
 
 
 def _counted(fn, warm=True):
-    """fn() once to warm up (when ``warm``), then once more with K1's, K2's
-    and K3's counts set to 0 just before it and read just after: (output,
+    """fn() once to warm up (when ``warm``), then once more with every
+    kernel's count set to 0 just before it and read just after: (output,
     seconds, launches by kernel name)."""
-    wrappers = _parallel_wrappers()
+    wrappers = kernel_wrappers()
     if warm:
         fn()
     torch.cuda.synchronize()
@@ -4444,6 +4512,8 @@ def _parallel_work(rank, world):
         shared=_counted(lambda: sharded_solve(shared, theta, mesh)),
         per_instance=_counted(lambda: sharded_solve(per, theta, mesh,
                                                     shared_PA=False)),
+        per_instance_small=_counted(lambda: sharded_solve(
+            per, theta[:RANK_B_ROUTE * world], mesh, shared_PA=False)),
         full=_counted(lambda: sharded_solve(full, theta[:B_FULL], mesh,
                                             shared_PA=False)),
         consensus=_counted(lambda: consensus_solve(
@@ -4462,6 +4532,8 @@ def _parallel_work(rank, world):
             shared=_counted(lambda: shared.solve_batch(theta)),
             per_instance=_counted(lambda: per.solve_batch(
                 theta, shared_PA=False)),
+            per_instance_small=_counted(lambda: per.solve_batch(
+                theta[:RANK_B_ROUTE * world], shared_PA=False)),
             full=_counted(lambda: full.solve_batch(theta[:B_FULL],
                                                    shared_PA=False)),
             consensus=_counted(lambda: consensus_solve(
@@ -4536,17 +4608,23 @@ def phase_parallel(card, world=PARALLEL_RANKS, backend='gloo'):
     where = 'cuda:0' if backend == 'gloo' else f'cuda:0-{world - 1}'
     print(f'# phase 19: {world}-rank {backend} world on {where}, '
           f'{time.perf_counter() - t0:.1f} s with start-up [{card}]')
+    from cvxpygen_tpu_torch.solvers.admm import pick_block
+    B_route = RANK_B_ROUTE * world
+    print(f'# phase 19: per_instance_small, B={B_route} ({RANK_B_ROUTE} a '
+          "rank): the reference's block for the whole batch "
+          f'{pick_block(B_route, 252, 222, torch.float32)}, for a rank '
+          f'alone {pick_block(RANK_B_ROUTE, 252, 222, torch.float32)}')
     launches = dict(K1=0, K2=0, K3=0)
     for name, kernel in (('shared', 'K1'), ('per_instance', 'K3'),
-                         ('full', 'K2'), ('consensus', 'K1'),
-                         ('model', None)):
+                         ('per_instance_small', 'K3'), ('full', 'K2'),
+                         ('consensus', 'K1'), ('model', None)):
         ref, t_ref, s_n = single[name]
         for r, res in enumerate(ranks):
             out, dt, n = res[name]
             for k in launches:
                 launches[k] += n[k]
-            counts = ', '.join(f'{k} {n[k]}' for k in n)
-            counts_ref = ', '.join(str(s_n[k]) for k in s_n)
+            counts = ', '.join(f'{k} {n[k]}' for k in launches)
+            counts_ref = ', '.join(str(s_n[k]) for k in launches)
             if name == 'consensus':
                 gap = float(np.max(np.abs(out['z_consensus']
                                           - ref['z_consensus'])))
@@ -4585,6 +4663,12 @@ def phase_parallel(card, world=PARALLEL_RANKS, backend='gloo'):
                   f'{name} rank {r}: {n_it} iterations differ, x gap {gap}')
             check(kernel is None or n[kernel] > 0,
                   f'{name}: {kernel} was not launched')
+            if name == 'per_instance_small':
+                # the route is part of the answer: each rank decides it
+                # from the whole batch, as one process does
+                check(same and s_n['K3'] > 0,
+                      f'{name} rank {r}: bitwise {same}, one process '
+                      f'launched K3 {s_n["K3"]} times')
     msg = ranks[0]['consensus_small']
     small = RANK_B_SMALL * world
     print(f'# phase 19: consensus B={small} over {world} ranks raises: {msg}')
@@ -4903,6 +4987,285 @@ def phase_embedded(card, dev='cuda'):
     return k1_launches, k4_launches
 
 
+# phase 22: float64 on the card through the default routes
+B_F64 = 64
+N_ORACLE_F64 = 16
+F64_SETTINGS = dict(eps_abs=1e-6, eps_rel=1e-6, max_iter=20000,
+                    check_interval=25, adaptive_rho=True)
+F64_CPG_SETTINGS = dict(eps_abs=1e-6, eps_rel=1e-6, max_iter=20000)
+# the bars of the port's CPU float64 tests for each family: the objective
+# within 1e-6 of the oracle relative to max(1, |ref|) (MPC:
+# tests/test_torch_solver.py::_assert_same_solution; ADP:
+# tests/test_torch_ipm_socp.py::test_adp_generate_code_default_ipm_matches_oracle);
+# entropy's objective within 1e-7 of logsumexp(c) and x within 1e-5 of
+# softmax(c) (tests/test_torch_ipm.py::test_entropy_default_scaling_reaches_optimum)
+F64_ORACLE_TOL = 1e-6
+F64_ENTROPY_OBJ_TOL = 1e-7
+F64_ENTROPY_X_TOL = 1e-5
+# the card's float64 run against the port's CPU float64 run of the same
+# route: equal statuses, iterations within one check interval (the IPM
+# checks every iteration), x within 1e-6 (x_gap)
+F64_CPU_TOL = 1e-6
+# entropy with the dual-barrier scaling and no neighbourhood backtracking,
+# where the IPM's path is a smooth function of the data (ROADMAP A4): with
+# the default two-secant scaling a 1e-15 relative change of c moved one
+# instance of this batch by 28 iterations in a CPU float64 run
+F64_ENTROPY_SETTINGS = dict(exotic_scaling='dual', exotic_backtracks=0)
+# timed calls of each float64 route after its first (set-up) call
+F64_REPS = 2
+# MPC H=30 on the banded engine: float64 on the card takes the per-instance
+# banded engine (the shared one runs K4/K5); at eps 1e-6 its objective is
+# held within the 1e-3 of tests/test_torch_banded.py::
+# test_generate_code_banded_cpg_solve (2.9e-6 in a CPU float64 run)
+B_F64_BANDED = 2
+F64_BANDED_SETTINGS = dict(MPC30_SETTINGS, eps_abs=1e-6, eps_rel=1e-6,
+                           max_iter=20000)
+F64_BANDED_ORACLE_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def one_cpu_thread():
+    """The CPU yardsticks run on one thread: their answer then does not
+    depend on how the host splits a product."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+def f64_against_cpu(label, out, ref, interval):
+    """Hold the card's float64 result to the CPU float64 run of the same
+    route (host dicts): equal statuses, iterations within ``interval``, x
+    within F64_CPU_TOL.  Returns the printed summary."""
+    n_status = int(np.sum(out['status'] != ref['status']))
+    d_it = int(np.max(np.abs(out['iters'].astype(np.int64)
+                             - ref['iters'].astype(np.int64))))
+    gap = x_gap(out['x'], ref['x'])
+    check(n_status == 0 and d_it <= interval and gap <= F64_CPU_TOL,
+          f'{label}: against the CPU float64 run, {n_status} statuses '
+          f'differ, iterations by {d_it} (bar {interval}), x gap {gap:.3e}')
+    return (f'against the CPU float64 run: statuses equal, iterations '
+            f'within {d_it}, x gap {gap:.3e}')
+
+
+def phase_float64(card, dev='cuda'):
+    """Phase 22: float64 on the card through the default routes, B_F64
+    instances each.  The kernels take float32, so float64 takes the
+    reference's routes off its TPU: MPC H=10 through generate_code(dtype=
+    'float64') -> solve_batch (the shared torch loop, no K1), one
+    solve(method='CPG'), MPC general on the per-instance loop (no K3, whose
+    float32 route takes this B), ADP and entropy n=32 on the IPM at 'auto'
+    ('lu', no K6/K7), MPC H=30 through CompiledBandedQPSolver at
+    B_F64_BANDED (the per-instance banded engine, no K4/K5); each against
+    the float64 oracle (or logsumexp) at the bar of the port's CPU float64
+    tests and against the port's CPU float64 run of the same route.  No
+    kernel may launch in the phase.  Each route is timed by
+    ``timed_solve`` after its first call.  Then the banded shared engine on
+    charging T=1440 in float64 must raise its ValueError at entry, and
+    CompiledBandedQPSolver must route that batch to the per-instance
+    engine instead."""
+    import cvxpygen_tpu_torch as ct
+    from cvxpygen_tpu_torch import cpg
+    from cvxpygen_tpu_torch.canon.canonicalizer import canonicalize
+    from cvxpygen_tpu_torch.runtime.solver import (CompiledBandedQPSolver,
+                                                   CompiledConicSolver,
+                                                   CompiledQPSolver)
+    from cvxpygen_tpu_torch.runtime.torch_family import (canon_batch_sparse,
+                                                         qp_bounds_batch)
+    from cvxpygen_tpu_torch.solvers import admm_banded_shared, ipm
+    from cvxpygen_tpu_torch.solvers.admm import (ADMMSettings, pick_block,
+                                                 use_iterate_kernel)
+    f64 = torch.float64
+    t_phase = time.perf_counter()
+    counters = kernel_wrappers()
+    for w in counters.values():
+        w.launches = 0
+
+    # MPC H=10: the generated package in float64, its batch (shared P/A)
+    prob = assign_mpc(mpc_problem(ct))
+    val_oracle = prob.solve()
+    mod = cpg.generate_code(
+        prob, code_dir=os.path.join(ROOT, 'build', 'chip_smoke', 'mpc_f64'),
+        solver='ADMM', dtype='float64', device=dev)
+    rt = mod._runtime
+    solver = rt.solver
+    fam = solver.family
+    check(solver.jf.maps.dtype == f64 and solver.device.type == dev,
+          f'float64 package: {solver.jf.maps.dtype} on {solver.device}')
+    theta = x_init_batch(fam, prob, B_F64)
+    refs = oracle_objs(fam, theta, N_ORACLE_F64)
+    st = ADMMSettings(**F64_SETTINGS)
+    # the card's 'auto' KKT mode is 'ns'; the CPU run pins it
+    st_cpu = dataclasses.replace(st, kkt_solver='ns')
+    cpu = CompiledQPSolver(fam, settings=st_cpu, dtype=f64, device='cpu')
+    for label, shared in (('shared', 'auto'), ('per-instance', False)):
+        out, sec = timed_solve(solver, theta, st, F64_REPS, shared_PA=shared)
+        out = _host(out)
+        with one_cpu_thread():
+            ref = _host(cpu.solve_batch(theta, shared_PA=shared))
+        max_rel, n_bad = parity(out['obj'] + out['d'], refs)
+        vs_cpu = f64_against_cpu(f'MPC {label}', out, ref,
+                                 st.check_interval)
+        k3 = [use_iterate_kernel(st, 'ns', B_F64, fam.m, fam.n, dt,
+                                 solver.device) for dt in (torch.float32, f64)]
+        route = ('' if shared else '; K3 route in float32 at this B: '
+                 f'{k3[0]} (block '
+                 f'{pick_block(B_F64, fam.m, fam.n, torch.float32)}), in '
+                 f'float64: {k3[1]}')
+        print(f'# phase 22: MPC H=10 float64 {label}, B={B_F64}, eps 1e-6: '
+              f'solved {float(np.mean(out["status"] == 1))}, mean iters '
+              f'{float(np.mean(out["iters"])):.2f}, {1e3 * sec:.3f} ms a '
+              f'call (mean of {F64_REPS} after the first); oracle parity on '
+              f'{N_ORACLE_F64}: max rel {max_rel:.3e}; {vs_cpu}{route} '
+              f'[{card}]')
+        check(np.all(out['status'] == 1), f'MPC {label}: unsolved')
+        check(n_bad == 0 and max_rel <= F64_ORACLE_TOL,
+              f'MPC {label}: oracle parity {max_rel:.3e}')
+
+    # one solve(method='CPG') of the float64 package (B=1: the loop), cold
+    # as the CPU run is: a first call takes the set-up, the second is timed
+    cpg_kw = dict(F64_CPG_SETTINGS, warm_start=False)
+    prob.solve(method='CPG', **cpg_kw)
+    t0 = time.perf_counter()
+    val = prob.solve(method='CPG', **cpg_kw)
+    ms = 1e3 * (time.perf_counter() - t0)
+    rel = abs(val - val_oracle) / max(1.0, abs(val_oracle))
+    st_cpg = dataclasses.replace(rt._settings(dict(cpg_kw)),
+                                 kkt_solver='ns')
+    with one_cpu_thread():
+        ref = _host(cpu.solve_batch(
+            fam.pack_theta(params=prob.parameters())[None], settings=st_cpg))
+    vs_cpu = f64_against_cpu('MPC CPG', rt._ctx['out'], ref,
+                             st_cpg.check_interval)
+    print(f'# phase 22: MPC H=10 float64 solve(method=CPG): {prob.status}, '
+          f'{prob.solver_stats.num_iters} iters, objective {val:.9f} vs '
+          f'oracle {val_oracle:.9f} (rel {rel:.3e}), {ms:.3f} ms (the call '
+          f'after the first); {vs_cpu} [{card}]')
+    check(prob.status == 'optimal' and rel <= F64_ORACLE_TOL,
+          f'MPC CPG float64: {prob.status}, rel {rel:.3e}')
+
+    # the IPM at 'auto': ADP (P > 0, SOC) and entropy (exp cones, P = 0)
+    aprob = assign_adp(adp_problem(ct))
+    afam = canonicalize(aprob)
+    atheta = adp_batch(afam, aprob, B_F64)
+    arefs = oracle_objs(afam, atheta, N_ORACLE_F64)
+    eprob, c = entropy_problem(ct, ENTROPY_N)
+    cs = np.random.default_rng(5).normal(size=(B_F64, ENTROPY_N))
+    c.value = cs[0]
+    efam = canonicalize(eprob)
+    etheta = entropy_batch(efam, eprob, cs)
+    lse = np.log(np.sum(np.exp(cs), axis=1))
+    est = ipm.IPMSettings(**F64_ENTROPY_SETTINGS)
+    for name, pfam, th, settings in (('ADP', afam, atheta, None),
+                                     ('entropy', efam, etheta, est)):
+        isolver = CompiledConicSolver(pfam, settings=settings, dtype=f64,
+                                      device=dev)
+        exotic = bool(pfam.n_exp)
+        mode = ipm.kkt_mode_for(isolver.settings, exotic, isolver.P_is_zero,
+                                f64, isolver.device)
+        mode32 = ipm.kkt_mode_for(isolver.settings, exotic,
+                                  isolver.P_is_zero, torch.float32,
+                                  isolver.device)
+        out, sec = timed_solve(isolver, th, None, F64_REPS)
+        out = _host(out)
+        with one_cpu_thread():
+            ref = _host(CompiledConicSolver(
+                pfam, settings=settings, dtype=f64,
+                device='cpu').solve_batch(th))
+        vs_cpu = f64_against_cpu(name, out, ref, 1)
+        if name == 'ADP':
+            err, n_bad = parity(out['obj'] + out['d'], arefs)
+            what = f'oracle parity on {N_ORACLE_F64}: max rel {err:.3e}'
+            ok = n_bad == 0 and err <= F64_ORACLE_TOL
+        else:
+            xv = [v for v in pfam.user_vars if v.name == 'x'][0]
+            sm = np.exp(cs) / np.sum(np.exp(cs), axis=1, keepdims=True)
+            x_err = float(np.max(np.abs(
+                out['x'][:, xv.offset:xv.offset + ENTROPY_N] - sm)))
+            err = float(np.max(np.abs(-(out['obj'] + out['d']) - lse)))
+            what = (f'|objective - logsumexp(c)| {err:.3e}, |x - '
+                    f'softmax(c)| {x_err:.3e}')
+            ok = err <= F64_ENTROPY_OBJ_TOL and x_err <= F64_ENTROPY_X_TOL
+        print(f'# phase 22: {name} float64 on the IPM, B={B_F64}, '
+              f"kkt_solver 'auto' -> {mode!r} (float32: {mode32!r}): solved "
+              f'{float(np.mean(out["status"] == 1))}, mean iters '
+              f'{float(np.mean(out["iters"])):.2f}, {1e3 * sec:.3f} ms a '
+              f'call (mean of {F64_REPS} after the first); {what}; {vs_cpu} '
+              f'[{card}]')
+        check(mode == 'lu', f'{name}: float64 on the card takes {mode!r}')
+        check(np.all(out['status'] == 1), f'{name} float64: unsolved')
+        check(ok, f'{name} float64: {what}')
+
+    # MPC H=30 through CompiledBandedQPSolver in float64: its batch shares
+    # P/A, which in float32 takes the shared engine (K5); float64 takes the
+    # per-instance banded engine, held to that engine's CPU float64 run
+    mprob = assign_mpc(mpc_problem(ct, H=30))
+    mfam = canonicalize(mprob)
+    mtheta = x_init_batch(mfam, mprob, B_F64_BANDED)
+    mrefs = oracle_objs(mfam, mtheta, B_F64_BANDED)
+    mst = ADMMSettings(**F64_BANDED_SETTINGS)
+    bsolver = CompiledBandedQPSolver(mfam, settings=mst, dtype=f64,
+                                     device=dev)
+    shared32 = CompiledBandedQPSolver(mfam, settings=mst,
+                                      device=dev)._use_shared(mtheta, 'auto')
+    shared64 = bsolver._use_shared(mtheta, 'auto')
+    out, sec = timed_solve(bsolver, mtheta, None, F64_REPS)
+    out = _host(out)
+    with one_cpu_thread():
+        ref = _host(CompiledBandedQPSolver(
+            mfam, settings=mst, dtype=f64, device='cpu').solve_batch(
+                mtheta, shared_PA=False))
+    max_rel, n_bad = parity(out['obj'] + out['d'], mrefs)
+    vs_cpu = f64_against_cpu('MPC H=30 banded', out, ref,
+                             mst.check_interval)
+    print(f'# phase 22: MPC H=30 float64 through CompiledBandedQPSolver, '
+          f'B={B_F64_BANDED}, eps 1e-6: shared engine in float32 '
+          f'{shared32}, in float64 {shared64}; solved '
+          f'{float(np.mean(out["status"] == 1))}, iters '
+          f'{out["iters"].tolist()}, {1e3 * sec:.3f} ms a call (mean of '
+          f'{F64_REPS} after the first); oracle parity: max rel '
+          f'{max_rel:.3e}; {vs_cpu} [{card}]')
+    check(shared32 and not shared64,
+          f'MPC H=30: shared engine in float32 {shared32}, float64 '
+          f'{shared64}')
+    check(np.all(out['status'] == 1), 'MPC H=30 float64: unsolved')
+    check(n_bad == 0 and max_rel <= F64_BANDED_ORACLE_TOL,
+          f'MPC H=30 float64: oracle parity {max_rel:.3e}')
+
+    launches = {k: w.launches for k, w in counters.items()}
+    print(f'# phase 22: kernel launches in the float64 runs: {launches}')
+    check(not any(launches.values()),
+          f'phase 22: a kernel launched in float64: {launches}')
+
+    # charging T=1440 in float64: the banded shared engine has no route
+    # without its kernels, so it raises at entry; the compiled solver takes
+    # the per-instance engine instead (the reference's route off its TPU)
+    cprob = charging_problem(ct)
+    cfam = canonicalize(cprob)
+    csolver = CompiledBandedQPSolver(cfam, dtype=f64, device=dev)
+    ctheta = charging_batch(cfam, cprob, 2)
+    data = canon_batch_sparse(csolver.jf, ctheta)
+    l, u = qp_bounds_batch(csolver.jf, data['b'])
+    try:
+        admm_banded_shared.admm_solve_banded_shared(
+            csolver.struct, csolver.grouped, data['pvals'][0], data['q'],
+            data['avals'][0], l, u, cfam.n_zero,
+            ADMMSettings(**CHARGING_SETTINGS), index=csolver.index)
+        msg = None
+    except ValueError as e:
+        msg = str(e)
+    shared = csolver._use_shared(ctheta, 'auto')
+    print(f'# phase 22: charging T={CHARGING_T} float64 on the banded '
+          f'shared engine raises: {msg}; the compiled solver takes the '
+          f'shared engine: {shared}; phase {time.perf_counter() - t_phase:.1f}'
+          f' s [{card}]')
+    check(msg is not None and 'float64' in msg and 'K4' in msg,
+          f'charging float64: the banded shared engine gave {msg!r}')
+    check(not shared, 'charging float64 would take the banded shared engine')
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke.py: no CUDA device')
@@ -4952,6 +5315,7 @@ def main():
     native_k1, native_k4 = phase_embedded(card)
     k1_launches += native_k1
     k4_launches += native_k4
+    phase_float64(card)
     kernels = [
         dict(name='admm_shared_solve', route='cuda',
              source='cvxpygen_tpu_torch/csrc/admm_shared.cu',

@@ -18,7 +18,8 @@ SOC boundary, so the backward builds K from the projection Jacobian.)
 Forward, as the reference chooses it: families with exp/PSD/pow cones run
 the conic ADMM (solvers/conic_admm.py), SOC-only families the IPM
 (solvers/ipm.py; no ``P_is_zero``, so ``kkt_solver='auto'`` is 'schur' on
-the card, and ``IPMSettings(kkt_solver='ldl')`` reaches kernels K6 + K7).
+the card in float32 and 'lu' in float64, and ``IPMSettings(kkt_solver=
+'ldl')`` reaches kernels K6 + K7).
 Backward: K is factored by ``torch.linalg.lu_factor`` in the working dtype
 (the reference's float32 factor with refinement is its TPU-only branch)
 and its transpose solved once.  The upstream gradient of ``y`` is not

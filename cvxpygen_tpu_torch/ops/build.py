@@ -82,6 +82,19 @@ def load_library(name, bind, verbose=False):
         return lib, time.perf_counter() - t0
 
 
+def require_kernel_dtype(dtype, dev, kernel, setting):
+    """Raise a ValueError where ``setting`` forces ``kernel`` onto the card
+    in a dtype that it does not take: every kernel of the port is float32
+    code.  Off the card the wrappers run their plain versions, which take
+    any floating dtype.  The solvers call this at their entry, so a forced
+    kernel never meets a float64 tensor."""
+    if dev.type == 'cuda' and dtype != torch.float32:
+        raise ValueError(
+            f'{setting} runs {kernel}, which takes float32 only on the card, '
+            f'not {dtype}: solve in float32, or leave the route to the '
+            "solver's default, which runs no kernel in float64")
+
+
 def checked(t, name, shape, dev):
     """``t`` as a contiguous float32 tensor on ``dev`` of ``shape``, or a
     TypeError/ValueError naming the argument."""

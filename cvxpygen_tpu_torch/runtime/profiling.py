@@ -5,9 +5,11 @@ Port of the JAX package's ``runtime/profiling.py``:
 - ``profile_qp_solve``: the per-instance ADMM solve's stages one by one
   (canonicalization GEMM, Ruiz equilibration, KKT assembly, the
   Newton-Schulz factorization, one check interval of iterations) beside the
-  whole solve.  Each stage runs the solve's own functions: on the card the
-  iterations are kernel K3 (ops/admm_kernel.py) and the factorization the
-  ``torch.matmul`` chain of solvers/admm.py.  On CUDA every stage is timed
+  whole solve.  Each stage runs the solve's own functions: the check
+  interval is ``iterate_interval`` of solvers/admm.py on the solve's route
+  (kernel K3 where ``use_iterate_kernel`` says so, else the refined loop);
+  the factorization is the ``torch.matmul`` chain of solvers/admm.py.  On
+  CUDA every stage is timed
   by CUDA events on the current stream around ``reps`` calls after one
   warm-up call (which takes the first nvcc build); on the CPU by the host
   clock.
@@ -63,7 +65,7 @@ def profile_qp_solve(tf, theta, settings=None, reps=3) -> Dict[str, float]:
     this batch size, on the family's device.  Stages mirror the solve
     pipeline; 'total_solve' runs the whole solve for comparison."""
     from ..solvers import admm as AD
-    from ..ops.admm_kernel import admm_iterate
+    from ..ops.admm_kernel import pick_iterate_block
     from .torch_family import canon_batch, qp_bounds_batch
 
     st = settings or AD.ADMMSettings()
@@ -96,11 +98,17 @@ def profile_qp_solve(tf, theta, settings=None, reps=3) -> Dict[str, float]:
                          M, reps=reps)
         out['factorize_ms'] = t
 
-        def block(Minv, As, qs, ls, us, rho, x, z, y):
-            return admm_iterate(Minv, As, qs, ls, us, rho, x, z, y, st.sigma,
-                                st.alpha, st.check_interval)
+        # the solve's route for this batch: K3 or the refined loop
+        kkt_mode = AD.admm_kkt_mode(st, As.device)
+        m, n = As.shape[1:]
+        k3_block = (pick_iterate_block(B, m, n) if AD.use_iterate_kernel(
+            st, kkt_mode, B, m, n, As.dtype, As.device) else None)
 
-        t, _ = _timed(block, Minv, As, s['qs'], s['ls'], s['us'], rho,
+        def block(Minv, Ps, As, qs, ls, us, rho, x, z, y):
+            return AD.iterate_interval(st, kkt_mode, k3_block, Minv, Ps, As,
+                                       qs, ls, us, rho, x, z, y)
+
+        t, _ = _timed(block, Minv, Ps, As, s['qs'], s['ls'], s['us'], rho,
                       s['x_start'], s['z_start'], s['y_start'], reps=reps)
         out[f'iterate_{st.check_interval}_ms'] = t
 

@@ -135,10 +135,12 @@ class CompiledBandedQPSolver:
     admm_banded_shared.py): kernel K5 for nb <= 96, the loop around kernel
     K4 above.  The reference takes that engine only on a TPU, where its
     Pallas kernels run (its runtime/solver.py:242-244); the port takes it
-    whenever ``use_shared_path`` says so: on CUDA through K4/K5, on the
-    CPU through their plain versions.  Other batches take the per-instance
-    engine.  The family's index tensors are built once, here.  Raises
-    NotBandedError when the KKT pattern is not (usefully) block-banded."""
+    whenever ``use_shared_path`` says so: on CUDA in float32 through K4/K5,
+    on the CPU through their plain versions.  Other batches, and float64 on
+    CUDA (the kernels take float32 only), take the per-instance engine, the
+    reference's route off its TPU.  The family's index tensors are built
+    once, here.  Raises NotBandedError when the KKT pattern is not
+    (usefully) block-banded."""
 
     solver_name = 'ADMM_BANDED'
 
@@ -179,7 +181,7 @@ class CompiledBandedQPSolver:
         jf = self.jf
         data = canon_batch_sparse(jf, theta)
         l, u = qp_bounds_batch(jf, data['b'])
-        if self.grouped is not None and self._use_shared(theta, shared_PA):
+        if self._use_shared(theta, shared_PA):
             res = admm_solve_banded_shared(
                 self.struct, self.grouped, data['pvals'][0], data['q'],
                 data['avals'][0], l, u, jf.n_zero, st, x0=x0, y0=y0,
@@ -193,7 +195,12 @@ class CompiledBandedQPSolver:
         return res
 
     def _use_shared(self, theta, shared_PA):
-        return use_shared_path(self._pa_mask, theta, shared_PA)
+        """The shared engine: a grouped-A layout, rows that share P/A, and
+        a dtype its kernels take where they run (float32 on CUDA)."""
+        return (self.grouped is not None
+                and (self.device.type != 'cuda'
+                     or self.jf.maps.dtype == torch.float32)
+                and use_shared_path(self._pa_mask, theta, shared_PA))
 
 
 class CompiledConicSolver:

@@ -22,12 +22,18 @@ P and A).  Three engines run it:
   ``use_pallas='full'``: the CUDA kernel on the card, its plain torch
   version on the CPU or with ``'full_interpret'``;
 - the torch loop with kernel K3 (ops/admm_kernel.py) for each check
-  interval's iterations, with 'auto' (CUDA, KKT mode 'ns') or 'always'
-  (KKT mode 'ns' or 'inv'; K3's plain version on the CPU).  K3 applies
-  M^-1 without the refinement sweep, as the reference's kernel does;
-- the torch loop alone, with 'never' (and 'auto' off the card).
+  interval's iterations, where ``use_iterate_kernel`` says so: with 'auto'
+  on the card in float32 at KKT mode 'ns' when the reference's block rule
+  (``pick_block``) gives the whole batch a block, as the JAX package
+  takes its fused kernel on a TPU; with 'always' at KKT mode 'ns' or
+  'inv' (K3's plain version on the CPU).  K3 applies M^-1 without the
+  refinement sweep, as the reference's kernel does;
+- the torch loop alone, which applies M^-1 with ``kkt_refine`` sweeps,
+  otherwise.
 
-On CUDA, a shape a kernel cannot take raises; nothing drops to the loop.
+The kernels are float32 code: float64 on the card takes the loop under
+'auto', and 'always' or 'full' raise at entry.  On CUDA, a shape a forced
+kernel cannot take raises; nothing drops to the loop.
 
 The loop's data-dependent control flow (its end, the adaptive-rho
 refactorization, the Newton-Schulz rescue) goes through a ``flow``:
@@ -45,6 +51,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops.build import require_kernel_dtype
 from .collectives import NO_SHARD, group_all, group_any, group_sum
 
 _INF = 1e30  # parity: reference replace_inf (utils.py:213-228)
@@ -74,9 +81,11 @@ class ADMMSettings:
     # hand-written kernel selection (the field keeps the reference's name).
     # Shared-KKT solve: 'auto'/'always'/'full' launch kernel K1 on CUDA
     # tensors (ops/admm_shared_kernel.py).  Per-instance solve: 'full'
-    # launches kernel K2, 'auto' (CUDA) and 'always' launch kernel K3 once
-    # per check interval.  'full_interpret' runs the whole-solve kernel's
-    # plain torch version, 'never' runs the torch loop.
+    # launches kernel K2, 'auto' (CUDA, where the reference's block rule
+    # gives one) and 'always' launch kernel K3 once per check interval.
+    # 'full_interpret' runs the whole-solve kernel's plain torch version,
+    # 'never' runs the torch loop.  The kernels take float32: in float64 on
+    # CUDA 'auto' runs the loop, and a forced kernel raises.
     use_pallas: str = 'auto'
     # reference: full-precision tail of its mixed-precision cold start; the
     # port is full precision throughout, and kernel K2 keeps only its
@@ -230,6 +239,58 @@ def ruiz_equilibrate(P, q, A, l, u, iters, shard=NO_SHARD):
 _USE_PALLAS = ('auto', 'always', 'never', 'full', 'full_interpret')
 
 
+def pick_block(B, m, n, dtype):
+    """The JAX package's block for its fused iteration kernel
+    (``_pick_block``, its solvers/admm.py:258-267): the largest of 32, 16,
+    8 that divides B and whose scoped-memory estimate is within 14 MB, or
+    None.  The port takes K3 under 'auto' only where this gives a block;
+    K3's own layout is ``pick_iterate_block``'s."""
+    esize = 4 if dtype == torch.float32 else 8
+    for blk in (32, 16, 8):
+        est = blk * (2 * (n * n + m * n) + 2 * m * n) * esize
+        if B % blk == 0 and est <= 14 * 1024 * 1024:
+            return blk
+    return None
+
+
+def admm_kkt_mode(st: ADMMSettings, dev):
+    """The KKT mode the solve runs: ``st.kkt_solver``, with 'auto' 'ns' on
+    the card and 'inv' elsewhere (the reference's rule, its
+    solvers/admm.py:332-334, with the card in its TPU's place)."""
+    if st.kkt_solver == 'auto':
+        return 'ns' if dev.type == 'cuda' else 'inv'
+    return st.kkt_solver
+
+
+def use_full_kernel(st: ADMMSettings, dtype, dev):
+    """Whether the whole solve runs in kernel K2 ('full') or its plain
+    version ('full_interpret'); 'full' in another dtype than float32 on the
+    card raises."""
+    if st.use_pallas == 'full':
+        require_kernel_dtype(dtype, dev, 'kernel K2 (the whole solve)',
+                             "use_pallas='full'")
+    return st.use_pallas in ('full', 'full_interpret')
+
+
+def use_iterate_kernel(st: ADMMSettings, kkt_mode, B, m, n, dtype, dev):
+    """Whether the per-instance loop runs kernel K3 for each check
+    interval, by the JAX package's rule (its solvers/admm.py:446-455).
+    'auto': KKT mode 'ns', the card, float32 (the kernel's only dtype) and
+    a block from ``pick_block`` for B, the whole batch's size -- so a B=1
+    solve, a B that is not a multiple of 8, or n and m above about 270 run
+    the refined loop.  'always': KKT mode 'ns' or 'inv' on any device; in
+    another dtype than float32 on the card it raises.  Other modes: no."""
+    if st.use_pallas == 'auto':
+        return (kkt_mode == 'ns' and dev.type == 'cuda'
+                and dtype == torch.float32
+                and pick_block(B, m, n, dtype) is not None)
+    if st.use_pallas == 'always' and kkt_mode in ('ns', 'inv'):
+        require_kernel_dtype(dtype, dev, 'kernel K3 (the fused iterations)',
+                             "use_pallas='always'")
+        return True
+    return False
+
+
 def _scale(P, q, A, l, u, n_eq, st, x0, y0, shard=NO_SHARD):
     """Ruiz-scaled problem data, base rho and scaled starting point."""
     B, n = q.shape
@@ -298,8 +359,8 @@ def admm_solve(P, q, A, l, u, n_eq, settings: ADMMSettings, x0=None, y0=None,
 
     ``group``: a process group over which the batch is sharded; the loop's
     end and the adaptive-rho refactorization are decided over its ranks,
-    and kernel K2's block is taken from the whole batch (no collective
-    when None).  ``shard``: a model-axis ``RowShard``; P and
+    and kernel K2's block and the K3 route are taken from the whole batch
+    (no collective when None).  ``shard``: a model-axis ``RowShard``; P and
     A are then this rank's row blocks (P (B, n_r, n), A (B, m_r, n)) and l,
     u whole.  ``flow``: ``EAGER`` (the default) or ``TRACED``."""
     with full_f32_matmul():
@@ -367,6 +428,43 @@ EAGER = _EagerFlow()
 TRACED = _TracedFlow()
 
 
+def iterate_interval(st: ADMMSettings, kkt_mode, k3_block, Minv, Ps, As, qs,
+                     ls, us, rho_vec, x, z, y, shard=NO_SHARD, flow=EAGER):
+    """One check interval's iterations of the per-instance solve, as its
+    route runs them: kernel K3 where ``k3_block`` is set (the solve sets
+    it where ``use_iterate_kernel`` says so), else the loop, which applies
+    M^-1 (the Cholesky factor in 'chol') with ``st.kkt_refine`` sweeps.
+    runtime/profiling.py times this function."""
+    if k3_block is not None:
+        return torch.ops.cvxpygen_tpu_torch.admm_iterate(
+            Minv, As, qs, ls, us, rho_vec, x, z, y, st.sigma, st.alpha,
+            st.check_interval, k3_block)
+    n, m = qs.shape[1], ls.shape[1]
+
+    def M_matvec(x):
+        # M x without materializing M (used by iterative refinement)
+        return (shard.mv(Ps, x, n) + st.sigma * x
+                + shard.vm(rho_vec * shard.mv(As, x, m), As, m))
+
+    def kkt_apply(rhs):
+        if kkt_mode == 'chol':
+            return torch.cholesky_solve(rhs[..., None], Minv)[..., 0]
+        xt = shard.mv(Minv, rhs, n)
+        for _ in range(st.kkt_refine):
+            xt = xt + shard.mv(Minv, rhs - M_matvec(xt), n)
+        return xt
+
+    def step(xn, zn, yn):
+        rhs = st.sigma * xn - qs + shard.vm(rho_vec * zn - yn, As, m)
+        xt = kkt_apply(rhs)
+        zt = shard.mv(As, xt, m)
+        x1 = st.alpha * xt + (1 - st.alpha) * xn
+        w = st.alpha * zt + (1 - st.alpha) * zn + yn / rho_vec
+        zn = torch.minimum(torch.maximum(w, ls), us)
+        return x1, zn, rho_vec * (w - zn)
+    return flow.repeat(st.check_interval, step, (x, z, y))
+
+
 def form_M(Ps, As, sigma, rho_vec, shard=NO_SHARD):
     """M = P + sigma I + A' diag(rho) A per instance (B, n, n); under a
     model ``shard`` this rank's row block of it."""
@@ -406,9 +504,7 @@ def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0,
         raise ValueError(
             f"ADMMSettings.use_pallas={st.use_pallas!r}: expected one of "
             + ', '.join(repr(v) for v in _USE_PALLAS))
-    kkt_mode = st.kkt_solver
-    if kkt_mode == 'auto':
-        kkt_mode = 'ns' if dev.type == 'cuda' else 'inv'
+    kkt_mode = admm_kkt_mode(st, dev)
     adaptive = st.adaptive_rho and kkt_mode != 'chol'
     if shard.group is not None and (kkt_mode == 'chol'
                                     or st.use_pallas != 'never'):
@@ -419,6 +515,23 @@ def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0,
         raise ValueError(f'use_pallas={st.use_pallas!r}: the whole-solve '
                          'kernel K2 cannot be exported; export the K3 route '
                          "('auto' or 'always') or the loop ('never')")
+    use_k2 = use_full_kernel(st, dtype, dev)
+    # the whole batch's size: K2's block and the K3 route are part of the
+    # answer, so a rank takes them from the whole batch, as one process does
+    # (under 'auto' only where K3 can run: the card in float32)
+    B_all = B
+    if group is not None and (use_k2 or (
+            st.use_pallas == 'auto' and dev.type == 'cuda'
+            and dtype == torch.float32)):
+        B_all = int(group_sum(torch.tensor(B, device=dev), group))
+    # the fused iteration kernel K3 applies M^-1 without refinement
+    k3_block = None
+    if use_iterate_kernel(st, kkt_mode, B_all, m, n, dtype, dev):
+        from ..ops.admm_kernel import pick_iterate_block
+        k3_block = pick_iterate_block(B, m, n)
+        if k3_block is None:
+            raise ValueError(f'fused iteration kernel: n={n}, m={m} does not '
+                             'fit shared memory')
 
     s = _scale(P, q, A, l, u, n_eq, st, x0, y0, shard)
     Ps, qs, As, ls, us = s['Ps'], s['qs'], s['As'], s['ls'], s['us']
@@ -435,7 +548,7 @@ def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0,
                     iters=it_vec, pri_res=rp, dua_res=rd,
                     solved=(status == 1), status=status)
 
-    if st.use_pallas in ('full', 'full_interpret'):
+    if use_k2:
         # the whole solve in kernel K2 (ops/admm_full_kernel.py)
         from ..ops.admm_full_kernel import (admm_solve_full,
                                             admm_solve_full_plain,
@@ -445,9 +558,7 @@ def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0,
         block = None
         if group is not None:
             # the block is part of the answer (the rescue and the
-            # refactorization act on whole blocks): take it from the whole
-            # batch, as the single-process solve does
-            B_all = int(group_sum(torch.tensor(B, device=dev), group))
+            # refactorization act on whole blocks)
             block = pick_full_block(B_all, m, n, dtype)
             if block is None or B % block:
                 raise ValueError(
@@ -469,32 +580,6 @@ def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0,
             return Lc  # keep the factor; triangular solves every iteration
         return shard.rows(torch.cholesky_solve(_eye(n, M).expand(B, n, n),
                                                Lc), n, dim=-2)
-
-    def M_matvec(rho_vec, x):
-        # M x without materializing M (used by iterative refinement)
-        return (shard.mv(Ps, x, n) + st.sigma * x
-                + shard.vm(rho_vec * shard.mv(As, x, m), As, m))
-
-    def kkt_apply(Minv, rho_vec, rhs):
-        if kkt_mode == 'chol':
-            return torch.cholesky_solve(rhs[..., None], Minv)[..., 0]
-        xt = shard.mv(Minv, rhs, n)
-        for _ in range(st.kkt_refine):
-            xt = xt + shard.mv(Minv, rhs - M_matvec(rho_vec, xt), n)
-        return xt
-
-    # the fused iteration kernel K3 applies M^-1 without refinement
-    use_k3 = False
-    if st.use_pallas == 'auto':
-        use_k3 = kkt_mode == 'ns' and dev.type == 'cuda'
-    elif st.use_pallas == 'always':
-        use_k3 = kkt_mode in ('ns', 'inv')
-    if use_k3:
-        from ..ops.admm_kernel import pick_iterate_block
-        k3_block = pick_iterate_block(B, m, n)
-        if k3_block is None:
-            raise ValueError(f'fused iteration kernel: n={n}, m={m} does not '
-                             'fit shared memory')
 
     u_open = us >= _INF * 0.5
     l_open = ls <= -_INF * 0.5
@@ -540,20 +625,9 @@ def _admm_solve_impl(P, q, A, l, u, n_eq, st: ADMMSettings, x0, y0,
         """One check interval: its iterations, then the residuals, the
         certificates and adaptive rho."""
         rho_vec = rho_base * rho_scale[:, None]
-        if use_k3:
-            xn, zn, yn = torch.ops.cvxpygen_tpu_torch.admm_iterate(
-                Minv, As, qs, ls, us, rho_vec, x, z, y, st.sigma, st.alpha,
-                st.check_interval, k3_block)
-        else:
-            def step(xn, zn, yn):
-                rhs = st.sigma * xn - qs + shard.vm(rho_vec * zn - yn, As, m)
-                xt = kkt_apply(Minv, rho_vec, rhs)
-                zt = shard.mv(As, xt, m)
-                x1 = st.alpha * xt + (1 - st.alpha) * xn
-                w = st.alpha * zt + (1 - st.alpha) * zn + yn / rho_vec
-                zn = torch.minimum(torch.maximum(w, ls), us)
-                return x1, zn, rho_vec * (w - zn)
-            xn, zn, yn = flow.repeat(st.check_interval, step, (x, z, y))
+        xn, zn, yn = iterate_interval(st, kkt_mode, k3_block, Minv, Ps, As,
+                                      qs, ls, us, rho_vec, x, z, y, shard,
+                                      flow)
         # freeze converged instances: batch result == single-instance result
         mask = done[:, None]
         dx = torch.where(mask, torch.zeros_like(x), xn - x)

@@ -26,9 +26,10 @@ Two engines, picked by the block count as in the reference
 
 Both run the same solve loop (``_run``) around their chunk function.
 
-On CUDA tensors the kernels launch; on CPU tensors their plain versions
-run.  The per-instance banded engine (solvers/admm_banded.py) covers
-batches whose P or A vary.  Math follows OSQP alg. 1-3.
+On CUDA tensors the kernels launch (float32 only; another dtype raises at
+entry); on CPU tensors their plain versions run.  The per-instance banded
+engine (solvers/admm_banded.py) covers batches whose P or A vary.  Math
+follows OSQP alg. 1-3.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from ..ops.banded_shared_kernel import (banded_shared_chunk,
                                         banded_shared_chunk_plain, cr_solve,
                                         grouped_av)
 from ..ops.block_tridiag import cr_factor
+from ..ops.build import require_kernel_dtype
 from .admm import ADMMSettings, full_f32_matmul
 from .admm_banded import (BandedStructure, _resolve_index,
                           assemble_banded_M)
@@ -107,7 +109,12 @@ def admm_solve_banded_shared(st: BandedStructure, ga: GroupedA,
     """Solve a batch sharing canonical P/A.  pvals/avals (nnz,) SHARED
     values; q (B, n), l/u (B, m) batched.  Same contract as
     admm_banded.admm_solve_banded.  Kernel K5 serves nb <= 96, the loop
-    around kernel K4 larger nb (the reference's switch)."""
+    around kernel K4 larger nb (the reference's switch).  Both engines
+    launch a kernel on the card, which takes float32 only: another dtype
+    there raises, as the reference's engine has no route without its
+    kernels."""
+    require_kernel_dtype(q.dtype, q.device, 'kernel K5' if st.nb <= 96
+                         else 'kernel K4', 'the banded shared-KKT engine')
     ix = _resolve_index(st, index, q.device, ga)
     with full_f32_matmul():
         if st.nb <= 96:

@@ -16,9 +16,9 @@ rho-scaled splitting, residual termination, infeasibility certificates):
   package's rule (1024 at B=2048 on MPC; None when B is not a multiple of
   8), or a pinned ``chunk``.  Adaptive rho there is chunk-shared.
 - the torch loop below otherwise (``use_pallas='never'``, the 'inv'/'chol'
-  KKT modes, no rho group, or the CPU outside 'full_interpret'): adaptive
-  rho is batch-shared, and the warm refactorization has the
-  residual-certificate rescue.
+  KKT modes, no rho group, float64 on the card under 'auto', or the CPU
+  outside 'full_interpret'): adaptive rho is batch-shared, and the warm
+  refactorization has the residual-certificate rescue.
 
 With a ``group`` (a batch sharded over its ranks, parallel/mesh.py) every
 batch-wide quantity is reduced over the ranks: the Ruiz cost scaling's |q|
@@ -30,8 +30,10 @@ from __future__ import annotations
 
 import torch
 
-from .admm import (ADMMSettings, _eye, _inf_norm, full_f32_matmul,
-                   newton_schulz_inverse, newton_schulz_warm)
+from ..ops.build import require_kernel_dtype
+from .admm import (ADMMSettings, _eye, _inf_norm, admm_kkt_mode,
+                   full_f32_matmul, newton_schulz_inverse,
+                   newton_schulz_warm)
 from .collectives import group_all, group_max, group_sum
 
 _INF = 1e30
@@ -160,12 +162,19 @@ def use_kernel(st: ADMMSettings, kkt_mode, B, m, n, dtype, dev, chunk=None):
     package decides: the 'ns' KKT mode, a kernel mode of ``use_pallas`` on
     the card (any device with 'full_interpret'), and a rho group -- the
     pinned ``chunk`` or ``pick_shared_chunk``'s.  Otherwise the torch loop
-    runs, with rho shared by the whole batch."""
+    runs, with rho shared by the whole batch.  K1 takes float32: in another
+    dtype on the card 'auto' runs the loop (the reference's route off its
+    TPU), and 'always' or 'full' raise where they would launch it."""
     from ..ops.admm_shared_kernel import pick_shared_chunk
-    return (st.use_pallas in _KERNEL_MODES and kkt_mode == 'ns'
+    take = (st.use_pallas in _KERNEL_MODES and kkt_mode == 'ns'
             and (dev.type == 'cuda' or st.use_pallas == 'full_interpret')
             and (chunk is not None
                  or pick_shared_chunk(B, m, n, dtype) is not None))
+    if take and st.use_pallas in ('always', 'full'):
+        require_kernel_dtype(dtype, dev, 'kernel K1 (the shared-KKT solve)',
+                             f'use_pallas={st.use_pallas!r}')
+    return take and (st.use_pallas != 'auto' or dev.type != 'cuda'
+                     or dtype == torch.float32)
 
 
 def _admm_solve_shared_impl(P, q, A, l, u, n_eq, st: ADMMSettings,
@@ -187,16 +196,18 @@ def _admm_solve_shared_impl(P, q, A, l, u, n_eq, st: ADMMSettings,
                     solved=torch.ones((B,), dtype=torch.bool, device=dev),
                     status=ones_i)
 
+    kkt_mode = admm_kkt_mode(st, dev)
+    use_chol = (kkt_mode == 'chol')
+    # the whole batch's size: the kernel's rho group is taken from it
+    B_all = B if group is None else int(group_sum(
+        torch.tensor(B, device=dev), group))
+    kernel = use_kernel(st, kkt_mode, B_all, m, n, dtype, dev, chunk)
+
     s = _scale(P, q, A, l, u, n_eq, st, x0, y0, group)
     Ps, As, qs, ls, us = s['Ps'], s['As'], s['qs'], s['ls'], s['us']
     D, E, c_inv, D_inv, E_inv = (s['D'], s['E'], s['c_inv'], s['D_inv'],
                                  s['E_inv'])
     rho_base = s['rho_base']
-
-    kkt_mode = st.kkt_solver
-    if kkt_mode == 'auto':
-        kkt_mode = 'ns' if dev.type == 'cuda' else 'inv'
-    use_chol = (kkt_mode == 'chol')
 
     def finish(x, z, y, it_vec, status, rp, rd):
         obj = c_inv * (0.5 * torch.einsum('bi,ij,bj->b', x, Ps, x)
@@ -209,10 +220,7 @@ def _admm_solve_shared_impl(P, q, A, l, u, n_eq, st: ADMMSettings,
                     iters=it_vec, pri_res=rp, dua_res=rd,
                     solved=(status == 1), status=status)
 
-    # the whole batch's size: the kernel's rho group is taken from it
-    B_all = B if group is None else int(group_sum(
-        torch.tensor(B, device=dev), group))
-    if use_kernel(st, kkt_mode, B_all, m, n, dtype, dev, chunk):
+    if kernel:
         # the whole solve in kernel K1 (ops/admm_shared_kernel.py)
         from ..ops.admm_shared_kernel import (admm_shared_solve,
                                               admm_shared_solve_plain,

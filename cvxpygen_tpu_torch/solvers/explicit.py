@@ -32,6 +32,7 @@ import scipy.optimize as sopt
 import torch
 
 from ..canon.canonicalizer import Family
+from ..runtime.torch_family import resolve_device
 
 
 class ExplicitError(ValueError):
@@ -506,7 +507,8 @@ def explicit_evaluate(data: ExplicitData, theta, want_dual=False,
                       device=None):
     """Batched evaluation: theta (B, p) -> (x_store (B, n_store), y (B, m)
     or None, region (B,)), float32 tensors on ``device`` (theta's device
-    when theta is a tensor, else the CPU).
+    when theta is a tensor, else the port's device rule: CUDA, or a refusal
+    when there is no card; pass ``device='cpu'`` for the CPU).
 
     One product over all regions' test rows, the min slack per region, the
     argmax region, then the feedback gather and product; the batch is cut
@@ -514,7 +516,8 @@ def explicit_evaluate(data: ExplicitData, theta, want_dual=False,
     result.  ``torch.argmax`` takes the first maximum, as ``jnp.argmax``
     does."""
     if device is None:
-        device = theta.device if torch.is_tensor(theta) else 'cpu'
+        device = (theta.device if torch.is_tensor(theta)
+                  else resolve_device(None))
     f32 = torch.float32
 
     def table(a):

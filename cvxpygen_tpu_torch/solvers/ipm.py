@@ -24,9 +24,11 @@ KKT solve modes (``kkt_solver``):
 - ``'schur'``: dz and dnu eliminated, the SPD Schur complement inverted by
   Newton-Schulz (``torch.matmul``, no factorization); ``'schur_chol'`` and
   ``'schur_lu'`` factor it by batched Cholesky or Jacobi-scaled LU;
-- ``'auto'``: on CUDA the reference's TPU policy -- ``'ldl'`` for exotic
-  layouts and P == 0 layouts (the condensed Schur system squares their
-  conditioning), ``'schur'`` otherwise; elsewhere ``'lu'``.
+- ``'auto'``: on CUDA in float32 the reference's TPU policy -- ``'ldl'``
+  for exotic layouts and P == 0 layouts (the condensed Schur system
+  squares their conditioning), ``'schur'`` otherwise; elsewhere, float64
+  on CUDA included, ``'lu'`` (``kkt_mode_for``).  The kernels take
+  float32: ``'ldl'`` in float64 on CUDA raises.
 
 Form (canon/canonicalizer.py convention):
     min 0.5 x'Px + q'x   s.t.  E x + f = 0,   G x + h = s,  s in K
@@ -50,6 +52,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..ops.build import require_kernel_dtype
 from ..ops.ldl_batched import default_delta
 from ..ops.ldl_kernel import (ldl_factor_inverse_kernel, ldl_factor_kernel,
                               ldl_inverse_kernel, ldl_kinv_kernel,
@@ -365,6 +368,26 @@ def _kinv_route(device, st, two_level):
     return 'k6k7'
 
 
+def kkt_mode_for(st, exotic, P_is_zero, dtype, dev):
+    """The batch's KKT solve mode: ``st.kkt_solver``, with 'auto' resolved
+    by the reference's rule (its solvers/ipm.py:440-451).  On the card in
+    float32 its TPU policy: condensation squares the conditioning of
+    exotic layouts and of P == 0 layouts, so they take the full-system LDL
+    ('ldl', kernels K6 + K7); symmetric layouts with P > 0 the
+    factorization-free Newton-Schulz Schur path ('schur').  Elsewhere, and
+    in float64 on the card, where no kernel runs, 'lu', its rule off the
+    TPU.  'ldl' in another dtype than float32 on the card raises."""
+    mode = st.kkt_solver
+    if mode == 'auto':
+        if dev.type == 'cuda' and dtype == torch.float32:
+            return 'ldl' if (exotic or P_is_zero) else 'schur'
+        return 'lu'
+    if mode == 'ldl':
+        require_kernel_dtype(dtype, dev, 'the LDL kernels (K6-K10)',
+                             "kkt_solver='ldl'")
+    return mode
+
+
 def _ldl_kinv(K, signs, st):
     """Explicit inverse of the pivot-regularized quasidefinite K: kernel K6
     then kernel K7, or kernel K9 under ``CPG_LDL_FUSED=1`` (their plain
@@ -418,16 +441,7 @@ def _ipm_solve_impl(P, q, E, f, G, h, l_nonneg, socs, st, n_exp, psd_dims,
     tol_gap = max(st.tol_gap, 30 * eps_mach)
     tol_inf = max(st.tol_infeas, 10 * eps_mach)
 
-    kkt_mode = st.kkt_solver
-    if kkt_mode == 'auto':
-        # the reference's TPU policy on the card: condensation squares the
-        # conditioning of exotic layouts and of P == 0 layouts, so they
-        # take the full-system LDL; symmetric layouts with P > 0 the
-        # factorization-free Newton-Schulz Schur path.  Elsewhere LU.
-        if dev.type == 'cuda':
-            kkt_mode = 'ldl' if (exo or P_is_zero) else 'schur'
-        else:
-            kkt_mode = 'lu'
+    kkt_mode = kkt_mode_for(st, bool(exo), P_is_zero, dtype, dev)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)

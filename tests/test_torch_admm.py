@@ -168,3 +168,131 @@ def test_bad_settings_raise():
         admm.admm_solve(*port_in, n_eq, _settings(admm, kkt_solver='lu'))
     with pytest.raises(ValueError, match='use_pallas'):
         admm.admm_solve(*port_in, n_eq, _settings(admm, use_pallas='fast'))
+
+
+# The per-instance route to kernel K3 against the JAX package's rule: its
+# fused kernel runs where ``_pick_block`` gives the batch a block (B a
+# multiple of 8, the block's estimate within 14 MB).  Float64 has no kernel
+# on the card, so there the route is the loop whatever the block.
+CARD = torch.device('cuda')
+ROUTE_CASES = [(2048, 252, 222), (256, 252, 222), (16, 252, 222),
+               (512, 172, 130), (6, 252, 222), (1, 252, 222),
+               (2048, 732, 642), (64, 700, 600), (24, 252, 222)]
+
+
+class _OnCard:
+    """Stands for a float64 tensor on a card that this machine lacks: the
+    solvers read only shapes, the dtype and the device before they decide a
+    route."""
+    dtype = torch.float64
+    device = CARD
+
+    def __init__(self, *shape):
+        self.shape = shape
+
+    def dim(self):
+        return len(self.shape)
+
+
+@pytest.mark.parametrize('B, m, n', ROUTE_CASES)
+def test_iterate_route_matches_reference(B, m, n):
+    st = admm.ADMMSettings()
+    for dt, jdt in ((torch.float32, jnp.float32),
+                    (torch.float64, jnp.float64)):
+        ref = admm_ref._pick_block(B, m, n, jdt)
+        assert admm.pick_block(B, m, n, dt) == ref
+        assert admm.use_iterate_kernel(st, 'ns', B, m, n, dt, CARD) is (
+            ref is not None and dt == torch.float32)
+        assert not admm.use_iterate_kernel(st, 'ns', B, m, n, dt,
+                                           torch.device('cpu'))
+        assert not admm.use_iterate_kernel(st, 'inv', B, m, n, dt, CARD)
+
+
+def test_iterate_route_takes_the_whole_batch(monkeypatch):
+    """A rank of 12 takes K3 where the whole batch of 24 has a block, so
+    the solve decides the route from the group's sum of B.  It sums only
+    where the route can take K3, on the card in float32 (chip_smoke.py's
+    phase 19 holds two ranks of 12 there bitwise to one process at 24): on
+    the CPU a grouped 'auto' solve runs no collective for the route (here a
+    stand-in group of two equal ranks) and is bitwise the solve without a
+    group."""
+    st = admm.ADMMSettings()
+    assert not admm.use_iterate_kernel(st, 'ns', 12, 252, 222,
+                                       torch.float32, CARD)
+    assert admm.use_iterate_kernel(st, 'ns', 24, 252, 222, torch.float32,
+                                   CARD)
+    seen, sums = [], []
+    route = admm.use_iterate_kernel
+
+    def recorded(st, kkt_mode, B, *args):
+        seen.append(B)
+        return route(st, kkt_mode, B, *args)
+
+    def summed(t, group):
+        sums.append(int(t))
+        return 2 * t
+
+    _, port_in, n_eq = _batch(B=4)
+    alone = admm.admm_solve(*port_in, n_eq, _settings(admm,
+                                                      use_pallas='auto'))
+    monkeypatch.setattr(admm, 'use_iterate_kernel', recorded)
+    monkeypatch.setattr(admm, 'group_sum', summed)
+    monkeypatch.setattr(admm, 'group_all', lambda b, group: torch.all(b))
+    monkeypatch.setattr(admm, 'group_any', lambda b, group: torch.any(b))
+    out = admm.admm_solve(*port_in, n_eq, _settings(admm, use_pallas='auto'),
+                          group='two ranks of 4')
+    assert seen == [4] and sums == []
+    for k in alone:
+        assert torch.equal(out[k], alone[k]), k
+
+
+def test_float64_on_card_takes_the_loops():
+    """'auto' in float64 on the card: the per-instance loop at a shape
+    where float32 takes K3, the shared loop where float32 takes K1."""
+    from cvxpygen_tpu_torch.solvers.admm_shared import use_kernel
+    st = admm.ADMMSettings()
+    assert admm.use_iterate_kernel(st, 'ns', 2048, 252, 222, torch.float32,
+                                   CARD)
+    assert not admm.use_iterate_kernel(st, 'ns', 2048, 252, 222,
+                                       torch.float64, CARD)
+    assert not admm.use_iterate_kernel(st, 'ns', 512, 172, 130,
+                                       torch.float64, CARD)
+    assert use_kernel(st, 'ns', 2048, 252, 222, torch.float32, CARD)
+    assert not use_kernel(st, 'ns', 2048, 252, 222, torch.float64, CARD)
+    # 'full_interpret' asks for the plain version, which takes float64
+    interp = admm.ADMMSettings(use_pallas='full_interpret')
+    assert use_kernel(interp, 'ns', 2048, 252, 222, torch.float64, CARD)
+
+
+def _forced_call(engine):
+    """The solver call of ``engine`` on float64 stand-ins on the card at the
+    MPC shape, B=2048, where every one of these engines launches its
+    kernel in float32."""
+    from cvxpygen_tpu_torch.solvers.admm_banded_shared import (
+        admm_solve_banded_shared)
+    from cvxpygen_tpu_torch.solvers.admm_shared import admm_solve_shared
+    B, m, n = 2048, 252, 222
+    q, l = _OnCard(B, n), _OnCard(B, m)
+    if engine == 'banded shared':
+        struct = type('Banded', (), {'nb': 541})()
+        return lambda: admm_solve_banded_shared(
+            struct, None, None, q, None, l, l, 0, admm.ADMMSettings())
+    shared, mode = engine.startswith('shared'), engine.split()[-1]
+    st = admm.ADMMSettings(use_pallas=mode, kkt_solver='ns')
+    if shared:
+        return lambda: admm_solve_shared(_OnCard(n, n), q, _OnCard(m, n), l,
+                                         l, 0, st)
+    return lambda: admm.admm_solve(_OnCard(B, n, n), q, _OnCard(B, m, n), l,
+                                   l, 0, st)
+
+
+@pytest.mark.parametrize('engine, kernel', [
+    ('always', 'K3'), ('full', 'K2'), ('shared always', 'K1'),
+    ('shared full', 'K1'), ('banded shared', 'K4')])
+def test_forced_kernel_in_float64_on_card_raises(engine, kernel):
+    """A forced kernel in float64 on the card raises a ValueError naming
+    the dtype and the kernel at the solver's entry, before any tensor is
+    read (the stand-ins hold no data)."""
+    with pytest.raises(ValueError,
+                       match=f'kernel {kernel}.*float32 only.*float64'):
+        _forced_call(engine)()

@@ -188,6 +188,29 @@ def test_compiled_banded_solver_non_shared_batch_matches_reference(
                                rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize('device, dtype, shared', [
+    ('cuda', torch.float32, True), ('cuda', torch.float64, False),
+    ('cpu', torch.float64, True)])
+def test_shared_engine_takes_float32_on_the_card(charging, device, dtype,
+                                                 shared):
+    """The banded shared engine runs kernels K4/K5 on the card, which take
+    float32 only: a batch that shares P/A takes it on the card in float32
+    and on the CPU in any dtype; float64 on the card takes the per-instance
+    engine.  The solver stands in for one on a card this machine lacks:
+    the rule reads only its layout, device and dtype."""
+    from types import SimpleNamespace
+    solver = CompiledBandedQPSolver(charging['fam'], device='cpu')
+    theta = _thetas(charging['fam_ref'], charging['prob'], 2)
+    assert solver.grouped is not None
+    assert solver._use_shared(theta, 'auto')
+    stand_in = SimpleNamespace(
+        grouped=solver.grouped, _pa_mask=solver._pa_mask,
+        device=torch.device(device),
+        jf=SimpleNamespace(maps=SimpleNamespace(dtype=dtype)))
+    assert CompiledBandedQPSolver._use_shared(stand_in, theta,
+                                              'auto') is shared
+
+
 def test_long_horizon_families_route_to_banded():
     """make_compiled_solver sends QP families with n >= 512 and a banded
     KKT pattern to the banded solver, as the reference does."""

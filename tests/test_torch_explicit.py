@@ -170,6 +170,26 @@ def test_evaluator_matches_reference(packages, case, monkeypatch):
     assert torch.equal(x2, x) and torch.equal(reg2, reg)
 
 
+def test_evaluator_device_rule(packages, monkeypatch):
+    """A theta that is not a tensor, with no device given, follows the
+    port's device rule: with no card it raises resolve_device's error;
+    device='cpu' gives the evaluation of the same theta as a CPU tensor,
+    bit for bit."""
+    (_, _), (port, _) = packages['regression']
+    data = port._runtime.data
+    lo, hi = data.th_lb, data.th_ub
+    theta = np.zeros((64, port._runtime.family.p))
+    theta[:, data.th_sel] = lo + (hi - lo) * np.random.default_rng(
+        5).random((64, len(lo)))
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        explicit_evaluate(data, theta)
+    x, _, reg = explicit_evaluate(data, theta, device='cpu')
+    x_t, _, reg_t = explicit_evaluate(data, torch.tensor(theta))
+    assert x.device.type == 'cpu'
+    assert torch.equal(x, x_t) and torch.equal(reg, reg_t)
+
+
 @pytest.mark.parametrize('case', list(CASES))
 def test_cpg_solve_matches_reference(packages, case):
     """solve(method='CPG') through both packages' explicit runtimes, and

@@ -284,6 +284,33 @@ def test_fused_opt_ins_ignored_off_cuda(monkeypatch):
                 'k9' if fused == '1' else 'k6k7')
 
 
+@pytest.mark.parametrize('exotic, P_is_zero, on_card', [
+    (True, False, 'ldl'), (False, True, 'ldl'), (False, False, 'schur')])
+def test_kkt_mode_rule(exotic, P_is_zero, on_card):
+    """'auto' takes the reference's TPU policy on the card in float32 and
+    its rule off the TPU, 'lu', on the CPU and in float64 on the card,
+    where no kernel runs; a forced 'ldl' in float64 on the card raises at
+    the solver's entry, before any tensor is read."""
+    from test_torch_admm import _OnCard
+    cpu, cuda = torch.device('cpu'), torch.device('cuda')
+    auto, ldl = ipm.IPMSettings(), ipm.IPMSettings(kkt_solver='ldl')
+    f32, f64 = torch.float32, torch.float64
+    assert ipm.kkt_mode_for(auto, exotic, P_is_zero, f32, cuda) == on_card
+    assert ipm.kkt_mode_for(auto, exotic, P_is_zero, f64, cuda) == 'lu'
+    for dt in (f32, f64):
+        assert ipm.kkt_mode_for(auto, exotic, P_is_zero, dt, cpu) == 'lu'
+        assert ipm.kkt_mode_for(ldl, exotic, P_is_zero, dt, cpu) == 'ldl'
+    assert ipm.kkt_mode_for(ldl, exotic, P_is_zero, f32, cuda) == 'ldl'
+    with pytest.raises(ValueError, match="kkt_solver='ldl' runs the LDL "
+                       r'kernels \(K6-K10\).*float32 only.*float64'):
+        ipm.kkt_mode_for(ldl, exotic, P_is_zero, f64, cuda)
+    B, n, mz, mc = 4, 5, 2, L + sum(SOCS)
+    with pytest.raises(ValueError, match='float32 only'):
+        ipm.ipm_solve(_OnCard(B, n, n), _OnCard(B, n), _OnCard(B, mz, n),
+                      _OnCard(B, mz), _OnCard(B, mc, n), _OnCard(B, mc), L,
+                      SOCS, ldl, P_is_zero=P_is_zero)
+
+
 def test_equality_only_family_matches_reference():
     """A family with no cone rows (mc == 0) takes the IPM's one saddle
     solve: the same x, duals and objective as the JAX package's."""

@@ -52,6 +52,30 @@ def test_profile_keys_match_reference(mpc):
     assert prof['mean_iters'] == ref['mean_iters']
 
 
+@pytest.mark.parametrize('use_pallas, k3_block', [('auto', None),
+                                                   ('always', 1)])
+def test_iterate_stage_runs_the_solve_route(mpc, monkeypatch, use_pallas,
+                                            k3_block):
+    """The profile's check-interval stage runs the solve's own
+    ``iterate_interval`` on the solve's own route: on the CPU 'auto' is
+    the refined loop (KKT mode 'inv'), 'always' kernel K3 (its plain
+    version here)."""
+    from cvxpygen_tpu_torch.solvers import admm
+    _, tf, T = mpc
+    route = admm.iterate_interval
+    seen = []
+
+    def recorded(st, kkt_mode, block, *args, **kw):
+        seen.append((kkt_mode, block))
+        return route(st, kkt_mode, block, *args, **kw)
+
+    monkeypatch.setattr(admm, 'iterate_interval', recorded)
+    st = admm.ADMMSettings(use_pallas=use_pallas, max_iter=50)
+    profile_qp_solve(tf, T, settings=st, reps=1)
+    assert len(seen) > 2
+    assert set(seen) == {('inv', k3_block)}
+
+
 def test_trace_writes_chrome_trace(mpc, tmp_path):
     """trace() around a profile writes a Chrome trace of torch's ops."""
     _, tf, T = mpc
